@@ -1,0 +1,566 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one CUDA card and the
+CUDA toolkit (``nvcc``).  It imports nothing of JAX and nothing of the
+JAX package ``repro``; it builds the port's CUDA kernels from the sources
+under ``src/repro_torch/kernels/csrc`` on first use.  Phases, one line
+each:
+
+1. environment: card name and power limit, torch/CUDA versions, build time;
+2. kernels: every CUDA kernel against its plain PyTorch version on the
+   card (hostile paged layout, padding-row poison, single == blocked and
+   fused == scatter-then-attend bitwise, the flash sweep, and the
+   engine's full-width shapes with kernel / plain / library times and the
+   card's lower bound);
+3. engine: full-width qwen3-1.7b (random weights from a seed) served by
+   the continuous-batching ``InferenceEngine``: prefix sharing with a
+   copy-on-write partial page, a coalesced duplicate, a request admitted
+   mid-decode; the kernels' launch counters must move and the plain
+   versions must not run; the CUDA and plain decode steps must agree;
+4. a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and the
+   last line ``{"ok": true, "device": {...}}``.
+
+Any failed check raises and the script exits non-zero without the last
+line.  Without a CUDA device it exits 2 before doing anything.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
+# larger of bytes / memory rate and operations / the rate for their type
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAKS_OF = "H100 SXM (3.35 TB/s HBM3, 989 TFLOP/s bf16, 67 TFLOP/s f32)"
+
+
+def log(phase: str, **kv) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+def nvidia_smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_calls(torch, fn, n: int):
+    """Wall ms per call (host clock around ``n`` calls ending in a
+    synchronize, under the profiler), device-busy ms per call (the sum of
+    the profiler's CUDA kernel intervals) and the six kernels with the
+    most device time, as [name, ms per call]."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name[:60]
+            per_kernel[name] = per_kernel.get(name, 0.0) \
+                + e.time_range.elapsed_us()
+    busy_us = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return (1e3 * wall / n, busy_us / 1e3 / n,
+            [[k, round(us / 1e3 / n, 4)] for k, us in top])
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine import tokenizer
+    from repro_torch.engine.engine import InferenceEngine
+    from repro_torch.engine.models import layers
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import NEG_INF
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_decode_attention import ops as pd_ops
+    from repro_torch.kernels.paged_decode_attention.ref import (
+        fused_paged_decode_attention_ref, paged_decode_attention_ref,
+        scatter_append_ref)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+
+    # ------------------------------------------------------ 1. environment
+    t0 = time.perf_counter()
+    build.library()
+    log("env", card=json.dumps(smi), torch=torch.__version__,
+        cuda=torch.version.cuda, build_s=f"{build.build_seconds:.3f}",
+        load_s=f"{time.perf_counter() - t0:.3f}")
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dev, dtype)
+
+    # ---------------------------------------------------------- 2. kernels
+    # hostile paged layout: shuffled pool, rows 0/1 alias their first two
+    # pages, lengths ending mid-page, one padding row
+    rng = np.random.default_rng(11)
+    B, NP, ps, H, Hkv, Dh = 3, 5, 8, 4, 2, 16
+    P = 2 * B * NP
+    pt = np.asarray(rng.permutation(P)[:B * NP].reshape(B, NP), np.int32)
+    pt[1, :2] = pt[0, :2]
+    lens = np.asarray(rng.integers(2 * ps + 1, NP * ps - 2, size=(B,)),
+                      np.int32)
+    lens = np.where(lens % ps == 0, lens + 1, lens)
+    lens[-1] = -1
+    pt_d = torch.as_tensor(pt).to(dev)
+    lens_d = torch.as_tensor(lens).to(dev)
+    for q_dt, pool_dt in ((torch.float32, torch.float32),
+                          (torch.bfloat16, torch.float32),
+                          (torch.bfloat16, torch.bfloat16)):
+        q = t(rng.normal(size=(B, H, Dh)), q_dt)
+        kp = t(rng.normal(size=(P, ps, Hkv, Dh)), pool_dt)
+        vp = t(rng.normal(size=(P, ps, Hkv, Dh)), pool_dt)
+        k_new = t(rng.normal(size=(B, Hkv, Dh)), pool_dt)
+        v_new = t(rng.normal(size=(B, Hkv, Dh)), pool_dt)
+        single, m, l = pd_ops.paged_decode_attention(
+            q, kp, vp, pt_d, lens_d, variant="single", return_lse=True)
+        ref, mr, lr = paged_decode_attention_ref(q, kp, vp, pt_d, lens_d,
+                                                 return_lse=True)
+        tol = 2e-5 if q_dt == torch.float32 else 3e-2
+        torch.testing.assert_close(single.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(m, mr, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(l, lr, atol=2e-5, rtol=2e-5)
+        assert torch.all(single[-1] == 0) and torch.all(m[-1] == NEG_INF) \
+            and torch.all(l[-1] == 0), "padding row not pinned"
+        for ppb in (2, 3, 4, 8):
+            blocked = pd_ops.paged_decode_attention(
+                q, kp, vp, pt_d, lens_d, variant="blocked",
+                pages_per_block=ppb)
+            assert torch.equal(blocked, single), f"blocked ppb={ppb}"
+        for ppb in (1, 2, 3, 4):
+            ks, vs = scatter_append_ref(kp.clone(), vp.clone(), pt_d,
+                                        lens_d, k_new, v_new)
+            base = pd_ops.paged_decode_attention(
+                q, ks, vs, pt_d, lens_d, variant="blocked",
+                pages_per_block=ppb)
+            kf, vf = kp.clone(), vp.clone()
+            fused, _, _ = pd_ops.fused_paged_decode_attention(
+                q, kf, vf, pt_d, lens_d, k_new, v_new, pages_per_block=ppb)
+            assert torch.equal(fused, base), f"fused out ppb={ppb}"
+            assert torch.equal(kf, ks) and torch.equal(vf, vs), \
+                f"fused pools ppb={ppb}"
+        # poison: the padding row's new KV must not reach the pool
+        kf, vf = kp.clone(), vp.clone()
+        pd_ops.fused_paged_decode_attention(
+            q, kf, vf, pt_d, lens_d, torch.full_like(k_new, 1e6),
+            torch.full_like(v_new, -1e6), pages_per_block=2)
+        for pg in pt[-1]:
+            assert not torch.any(kf[int(pg)] == 1e6) \
+                and not torch.any(vf[int(pg)] == -1e6), "padding row wrote"
+        torch.cuda.synchronize()
+    log("kernels.paged", layout="hostile(B=3,NP=5,ps=8,H=4,Hkv=2,Dh=16)",
+        dtypes="f32/f32,bf16/f32,bf16/bf16", single_vs_plain="ok",
+        blocked_eq_single="bitwise", fused_eq_scatter_attend="bitwise",
+        padding_row="pinned,writes_nothing")
+
+    for (B, Sq, Skv, H, Hkv, Dh) in ((1, 32, 32, 2, 2, 8),
+                                     (2, 64, 64, 4, 2, 16),
+                                     (2, 16, 64, 8, 1, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for window in (0, 24):
+                q = t(rng.normal(size=(B, Sq, H, Dh)), dtype)
+                k = t(rng.normal(size=(B, Skv, Hkv, Dh)), dtype)
+                v = t(rng.normal(size=(B, Skv, Hkv, Dh)), dtype)
+                qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32,
+                                  device=dev).expand(B, Sq).contiguous()
+                kvp = torch.arange(Skv, dtype=torch.int32,
+                                   device=dev).expand(B, Skv).contiguous()
+                qp[0, 0] = -1                  # no valid key: mean(V)
+                out = fa_ops.flash_attention(q, k, v, q_positions=qp,
+                                             kv_positions=kvp,
+                                             window=window)
+                ref = flash_attention_ref(q, k, v, q_positions=qp,
+                                          kv_positions=kvp, window=window)
+                tol = 2e-5 if dtype == torch.float32 else 3e-2
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           atol=tol, rtol=tol)
+                mean_v = v[0].float().mean(0).repeat_interleave(H // Hkv, 0)
+                torch.testing.assert_close(out[0, 0].float(), mean_v,
+                                           atol=tol, rtol=tol)
+    torch.cuda.synchronize()
+    log("kernels.flash", sweep="3 shapes x f32/bf16 x window 0/24",
+        vs_plain="ok", no_valid_key_row="mean(V)")
+
+    kernels = []
+    # flash at the engine's prefill shape: a 512-token chunk after a
+    # 32-token cached prefix, bf16
+    B, Sq, Skv, H, Hkv, Dh = 1, 512, 544, 16, 8, 128
+    q = t(rng.normal(size=(B, Sq, H, Dh)), torch.bfloat16)
+    k = t(rng.normal(size=(B, Skv, Hkv, Dh)), torch.bfloat16)
+    v = t(rng.normal(size=(B, Skv, Hkv, Dh)), torch.bfloat16)
+    qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32,
+                      device=dev).expand(B, Sq).contiguous()
+    kvp = torch.arange(Skv, dtype=torch.int32, device=dev).expand(
+        B, Skv).contiguous()
+
+    def flash_run():
+        return fa_ops.flash_attention(q, k, v, q_positions=qp,
+                                      kv_positions=kvp)
+
+    def flash_plain():
+        return flash_attention_ref(q, k, v, q_positions=qp,
+                                   kv_positions=kvp)
+
+    mask = (kvp[:, None, None, :] <= qp[:, None, :, None])   # (B,1,Sq,Skv)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def flash_library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    err = (flash_run().float() - flash_plain().float()).abs().max().item()
+    assert err < 3e-2, f"flash main shape err {err}"
+    lib_err = (flash_library().transpose(1, 2).float()
+               - flash_plain().float()).abs().max().item()
+    pairs = int(mask.sum().item())
+    fl_bytes = 2 * (q.numel() * 2) + 2 * (k.numel() * 2) \
+        + 4 * (qp.numel() + kvp.numel())
+    fl_bound, fl_by = bound(fl_bytes, 4 * Dh * H * pairs, "bfloat16")
+    fa_ms = time_ms(torch, flash_run)
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
+        "launches": None, "max_abs_err": err, "ms": fa_ms,
+        "plain_ms": time_ms(torch, flash_plain),
+        "bound_ms": fl_bound, "bound_by": fl_by,
+        "library_ms": time_ms(torch, flash_library)})
+    log("kernels.flash_main", shape=f"B={B},Sq={Sq},Skv={Skv},H={H},"
+        f"Hkv={Hkv},Dh={Dh},bf16", max_abs_err=f"{err:.3e}", tolerance=3e-2,
+        sdpa_err=f"{lib_err:.3e}", ms=f"{fa_ms:.4f}",
+        plain_ms=f"{kernels[-1]['plain_ms']:.4f}",
+        library_ms=f"{kernels[-1]['library_ms']:.4f}",
+        bound_ms=f"{fl_bound:.5f}", bound_by=fl_by)
+
+    # fused paged decode at the engine's full-width decode step: B=8 rows
+    # of 65 live pages, page 8, f32 pool, bf16 q; four layers' pools are
+    # cycled so each launch finds its pages out of L2, as a step does
+    B, NP, ps, H, Hkv, Dh, NL = 8, 65, 8, 16, 8, 128, 4
+    P = 1024
+    q = t(rng.normal(size=(B, H, Dh)), torch.bfloat16)
+    pools = [t(rng.normal(size=(NL, P, ps, Hkv, Dh)), torch.bfloat16).float()
+             for _ in range(2)]
+    pt_d = torch.as_tensor(rng.permutation(P)[:B * NP].reshape(B, NP),
+                           dtype=torch.int32).to(dev)
+    lens_d = torch.full((B,), NP * ps - 3, dtype=torch.int32, device=dev)
+    k_new = t(rng.normal(size=(B, Hkv, Dh)), torch.bfloat16).float()
+    v_new = t(rng.normal(size=(B, Hkv, Dh)), torch.bfloat16).float()
+    ks, vs = scatter_append_ref(pools[0][0].clone(), pools[1][0].clone(),
+                                pt_d, lens_d, k_new, v_new)
+    ref = paged_decode_attention_ref(q, ks, vs, pt_d, lens_d)
+    out, k0, _ = pd_ops.fused_paged_decode_attention(
+        q, pools[0][0], pools[1][0], pt_d, lens_d, k_new, v_new)
+    pd_err = (out.float() - ref.float()).abs().max().item()
+    assert pd_err < 3e-2 and torch.equal(k0, ks), f"paged main err {pd_err}"
+    layer = [0]
+
+    def pd_run():
+        i = layer[0] = (layer[0] + 1) % NL
+        return pd_ops.fused_paged_decode_attention(
+            q, pools[0][i], pools[1][i], pt_d, lens_d, k_new, v_new)
+
+    def pd_plain():
+        i = layer[0] = (layer[0] + 1) % NL
+        return fused_paged_decode_attention_ref(
+            q, pools[0][i], pools[1][i], pt_d, lens_d, k_new, v_new)
+
+    T = NP * ps
+    kd = pools[0][0][pt_d.long()].reshape(B, T, Hkv, Dh).transpose(1, 2)
+    vd = pools[1][0][pt_d.long()].reshape(B, T, Hkv, Dh).transpose(1, 2)
+    qd = q.float()[:, :, None, :]
+    dmask = (torch.arange(T, device=dev)[None, :]
+             <= lens_d[:, None])[:, None, None, :]
+
+    def pd_library():
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask,
+                                              enable_gqa=True)
+
+    live = int(B * NP)                   # distinct live pages, all rows
+    pd_bytes = live * ps * Hkv * Dh * 4 * 2 + q.numel() * 2 * 2 \
+        + 2 * B * H * 4 + 4 * (pt_d.numel() + B) + 2 * k_new.numel() * 4 * 2
+    valid_tokens = int((lens_d + 1).sum().item())
+    pd_bound, pd_by = bound(pd_bytes, 4 * H * Dh * valid_tokens, "float32")
+    pd_ms = time_ms(torch, pd_run, iters=40)
+    kernels.append({
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        "replaces":
+            "src/repro/kernels/paged_decode_attention/kernel.py:375",
+        "launches": None, "max_abs_err": pd_err, "ms": pd_ms,
+        "plain_ms": time_ms(torch, pd_plain),
+        "bound_ms": pd_bound, "bound_by": pd_by,
+        "library_ms": time_ms(torch, pd_library)})
+    log("kernels.paged_main", shape=f"fused,B={B},live_pages={NP},ps={ps},"
+        f"Hkv={Hkv},Dh={Dh},G={H // Hkv},q=bf16,pool=f32",
+        max_abs_err=f"{pd_err:.3e}", tolerance=3e-2, ms=f"{pd_ms:.4f}",
+        plain_ms=f"{kernels[-1]['plain_ms']:.4f}",
+        library_ms=f"{kernels[-1]['library_ms']:.4f}",
+        bound_ms=f"{pd_bound:.5f}", bound_by=pd_by,
+        bytes=pd_bytes, peaks=json.dumps(PEAKS_OF))
+
+    # the attend-only arms (kernel_variant="single"/"blocked") on the same
+    # inputs; the plain version is the gather-dense reference
+    def arm(variant):
+        def run():
+            i = layer[0] = (layer[0] + 1) % NL
+            return pd_ops.paged_decode_attention(
+                q, pools[0][i], pools[1][i], pt_d, lens_d, variant=variant)
+        return run
+
+    def arm_plain():
+        i = layer[0] = (layer[0] + 1) % NL
+        return paged_decode_attention_ref(q, pools[0][i], pools[1][i], pt_d,
+                                          lens_d)
+
+    log("kernels.paged_arms", shape="as paged_main, attend only",
+        single_ms=f"{time_ms(torch, arm('single'), iters=40):.4f}",
+        blocked_ppb4_ms=f"{time_ms(torch, arm('blocked'), iters=40):.4f}",
+        plain_ms=f"{time_ms(torch, arm_plain):.4f}")
+    del pools, kd, vd, ks, vs
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 3. engine
+    cfg = get_config("qwen3-1.7b")
+    eng = InferenceEngine(cfg, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    load_s = eng.load()
+    words = np.random.default_rng(3)
+
+    def text(n):
+        return " ".join(f"w{int(x)}" for x in words.integers(0, 10**6, n))
+
+    vocab = cfg.vocab_size
+    shared = tokenizer.tokenize(text(130), vocab)        # 131 tokens
+    prompts = {
+        "share_a": shared + tokenizer.tokenize(text(70), vocab, False),
+        "share_b": shared + tokenizer.tokenize(text(120), vocab, False),
+        "cold_c": tokenizer.tokenize(text(379), vocab),
+        "cold_d": tokenizer.tokenize(text(149), vocab),
+        "late_e": shared + tokenizer.tokenize(text(40), vocab, False),
+    }
+    assert all(100 <= len(p) <= 400 for p in prompts.values())
+    assert len(shared) % eng.page_size != 0
+    max_new = 32
+
+    # count the plain versions: none may run on the CUDA path
+    plain_calls = {"n": 0}
+
+    def counted(fn):
+        def wrapper(*a, **kw):
+            plain_calls["n"] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    fa_ops.flash_attention_ref = counted(fa_ops.flash_attention_ref)
+    layers.flash_attention_ref = counted(layers.flash_attention_ref)
+    pd_ops.paged_decode_attention_ref = counted(
+        pd_ops.paged_decode_attention_ref)
+    pd_ops.fused_paged_decode_attention_ref = counted(
+        pd_ops.fused_paged_decode_attention_ref)
+
+    step_s, admit_s = [], []
+    orig_decode, orig_admit = eng._decode_paged, eng._admit_one
+
+    def timed_decode():
+        t0 = time.perf_counter()
+        orig_decode()
+        step_s.append(time.perf_counter() - t0)
+
+    def timed_admit(req):
+        t0 = time.perf_counter()
+        slot = orig_admit(req)
+        admit_s.append(time.perf_counter() - t0)
+        return slot
+
+    eng._decode_paged, eng._admit_one = timed_decode, timed_admit
+
+    fa_ops.launches = 0
+    pd_ops.launches = 0
+    t_run = time.perf_counter()
+    handles = {n: eng.submit(prompts[n], max_new_tokens=max_new)
+               for n in ("cold_c", "share_a", "share_b", "cold_d")}
+    handles["dup_c"] = eng.submit(prompts["cold_c"], max_new_tokens=max_new)
+    deadline = time.monotonic() + 300
+    while eng.stats.decode_tokens < 1:
+        assert time.monotonic() < deadline, "engine made no decode step"
+        time.sleep(0.001)
+    handles["late_e"] = eng.submit(prompts["late_e"], max_new_tokens=max_new)
+    outs = {n: h.result(timeout=600) for n, h in handles.items()}
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    fa_launches, pd_launches = fa_ops.launches, pd_ops.launches
+    kernels[0]["launches"] = fa_launches
+    kernels[1]["launches"] = pd_launches
+    st = eng.stats
+    assert all(len(o) == max_new for o in outs.values()), "short output"
+    assert outs["dup_c"] == outs["cold_c"]
+    assert st.prefix_hits >= 1 and st.coalesced_requests >= 1 \
+        and st.peak_batch >= 2, st.as_dict()
+    assert fa_launches > 0 and pd_launches > 0, (fa_launches, pd_launches)
+    assert plain_calls["n"] == 0, "a plain version ran on the CUDA path"
+    n_steps = len(step_s)
+    admitted = len(admit_s)
+    log("engine.run", model="qwen3-1.7b(full width, 28 layers)",
+        requests=len(handles), admitted=admitted, tokens_each=max_new,
+        prefix_hits=st.prefix_hits, tokens_reused=st.tokens_reused,
+        coalesced=st.coalesced_requests, peak_batch=st.peak_batch,
+        admission_waves=st.admission_waves, decode_steps=n_steps,
+        decode_tokens=st.decode_tokens, load_s=f"{load_s:.3f}",
+        run_s=f"{run_s:.3f}")
+    decode_s = sum(step_s)
+    log("engine.perf", decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
+        mean_step_ms=f"{1e3 * decode_s / n_steps:.3f}",
+        prefill_ms_per_request=f"{1e3 * sum(admit_s) / admitted:.3f}",
+        flash_launches=fa_launches,
+        flash_launches_per_request=f"{fa_launches / admitted:.1f}",
+        paged_launches=pd_launches,
+        paged_launches_per_step=f"{pd_launches / n_steps:.1f}",
+        max_memory_allocated_gib=
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        plain_calls=plain_calls["n"])
+
+    # one decode step under impl="cuda" and under impl="torch" over
+    # copies of the same pool: bf16 activations through 28 layers, the
+    # plain path rounding probs to bf16 before PV
+    eng._decode_paged, eng._admit_one = orig_decode, orig_admit
+    kv = eng.kv
+    seqs = list(eng._warm)[:4]
+    kv.prepare_appends(seqs)
+    n_pages = max(len(kv.sequences[s].page_ids) for s in seqs)
+    pt_np = np.zeros((4, n_pages), np.int32)
+    for i, s in enumerate(seqs):
+        pt_np[i, :len(kv.sequences[s].page_ids)] = kv.sequences[s].page_ids
+    lens_step = torch.tensor([kv.sequences[s].length for s in seqs],
+                             dtype=torch.int32, device=dev)
+    tok_step = torch.tensor([11, 12, 13, 14], dtype=torch.int32, device=dev)
+    pt_step = torch.as_tensor(pt_np).to(dev)
+    logits = {}
+    for impl in ("cuda", "torch"):
+        lg, _, _ = eng.model.paged_decode_step(
+            tok_step, kv.k.clone(), kv.v.clone(), pt_step, lens_step,
+            impl=impl)
+        assert lg.shape == (4, cfg.padded_vocab) and bool(
+            torch.isfinite(lg).all()), impl
+        logits[impl] = lg.float()
+    diff = (logits["cuda"] - logits["torch"]).abs().max().item()
+    scale = logits["torch"].abs().max().item()
+    same_argmax = torch.equal(logits["cuda"].argmax(-1),
+                              logits["torch"].argmax(-1))
+    assert diff <= 5e-2 * scale, (diff, scale)
+    log("engine.step_parity", rows=4, max_abs_diff=f"{diff:.4e}",
+        logit_scale=f"{scale:.4e}", tolerance="5e-2*scale",
+        same_argmax=same_argmax)
+
+    # where a step's time goes: the profiler's device kernels over a few
+    # decode steps (the 5 warm rows padded to 8, as the engine pads) and
+    # over one 384-token cold chunk prefill
+    seqs = list(eng._warm)[:8]
+    kv.prepare_appends(seqs)
+    n_pages = max(len(kv.sequences[s].page_ids) for s in seqs)
+    pt_np = np.zeros((8, n_pages), np.int32)
+    lens_np = np.full((8,), -1, np.int32)
+    for i, s in enumerate(seqs):
+        ids = kv.sequences[s].page_ids
+        pt_np[i, :len(ids)] = ids
+        lens_np[i] = kv.sequences[s].length
+    pt_step = torch.as_tensor(pt_np).to(dev)
+    lens_step = torch.as_tensor(lens_np).to(dev)
+    tok_step = torch.arange(8, dtype=torch.int32, device=dev) + 11
+
+    def decode_step():
+        eng.model.paged_decode_step(tok_step, kv.k, kv.v, pt_step,
+                                    lens_step)
+
+    cold = prompts["cold_c"]                     # 380 tokens, padded to 384
+    chunk = torch.as_tensor([cold + [0] * (384 - len(cold))],
+                            dtype=torch.int32, device=dev)
+
+    def prefill_chunk():
+        eng.model.prefill_with_cache(
+            chunk, eng._chunk_view(416),
+            valid_len=torch.tensor([len(cold)], dtype=torch.int32,
+                                   device=dev))
+
+    for what, fn, n in (("decode_step(B=8)", decode_step, 5),
+                        ("chunk_prefill(S=384,T=416)", prefill_chunk, 2)):
+        wall_ms, busy_ms, top = profile_calls(torch, fn, n)
+        log("engine.profile", call=what, calls=n,
+            wall_ms_per_call=f"{wall_ms:.3f}",
+            device_busy_ms_per_call=f"{busy_ms:.3f}",
+            device_busy_share=f"{busy_ms / wall_ms:.3f}",
+            top_kernels_ms_per_call=json.dumps(top))
+
+    # batch invariance: the request decoded first in a batch of up to six
+    # rows, decoded again alone (cold prefill, batch of one)
+    eng.release_warm()
+    alone = eng.generate([prompts["cold_c"]], max_new_tokens=max_new)[0]
+    invariant = alone == outs["cold_c"]
+    first_diff = next((i for i, (a, b) in enumerate(
+        zip(alone, outs["cold_c"])) if a != b), None)
+    log("engine.batch_invariance", request="cold_c", batched_vs_alone=
+        "equal" if invariant else "differ", first_differing_token=first_diff)
+    eng.shutdown()
+
+    # ------------------------------------------------------- 4. the report
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

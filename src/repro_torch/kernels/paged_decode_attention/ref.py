@@ -1,0 +1,103 @@
+"""Plain PyTorch paged GQA flash-decode: gather the pages dense, then run
+the contiguous decode-attention math over them.
+
+The counterpart of ``repro/kernels/paged_decode_attention/ref.py`` (with
+the math of ``repro/kernels/decode_attention/ref.py`` it reuses) and the
+plain version the CUDA kernel is held against.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.common import NEG_INF
+
+
+def decode_attention_ref(q, k, v, *, q_positions, kv_positions, window=0,
+                         return_lse=False):
+    """q: (B,H,Dh) one new token; k,v: (B,T,Hkv,Dh); kv_positions (B,T).
+
+    Returns out (B,H,Dh) in q's dtype; with ``return_lse`` also (m, l),
+    each (B,H) f32, the running max and sum of a log-sum-exp combine.
+    """
+    B, H, Dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, Dh)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
+                          k.float()) / math.sqrt(Dh)
+    qp = q_positions.reshape(B)[:, None, None, None]
+    kp = kv_positions[:, None, None, :]
+    mask = (kp >= 0) & (kp <= qp)
+    if window:
+        mask = mask & (kp > qp - window)
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1)                                  # (B,Hkv,G)
+    p = torch.exp(logits - m[..., None])
+    p = torch.where(mask, p, 0.0)
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    out = out / torch.where(l == 0.0, 1.0, l)[..., None]
+    out = out.reshape(B, H, Dh).to(q.dtype)
+    if return_lse:
+        return out, m.reshape(B, H), l.reshape(B, H)
+    return out
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths,
+                               return_lse: bool = False):
+    """q: (B,H,Dh); k_pages/v_pages: (P, page, Hkv, Dh);
+    page_table: (B, n_pages) int32; lengths: (B,) int32 (-1 = padding).
+
+    Token position of page slot (i, j) in a row is ``i*page + j``; valid
+    while ``<= lengths[b]``.  Returns out (B,H,Dh); with ``return_lse``
+    also (m, l).
+    """
+    B, n_pages = page_table.shape
+    _, page_size, Hkv, Dh = k_pages.shape
+    T = n_pages * page_size
+    idx = page_table.long()
+    k = k_pages[idx].reshape(B, T, Hkv, Dh)
+    v = v_pages[idx].reshape(B, T, Hkv, Dh)
+    kv_positions = torch.arange(T, dtype=torch.int32,
+                                device=q.device).expand(B, T)
+    return decode_attention_ref(q, k, v, q_positions=lengths,
+                                kv_positions=kv_positions,
+                                return_lse=return_lse)
+
+
+def scatter_append_ref(k_pages, v_pages, page_table, lengths, k_new, v_new):
+    """The scatter the fused kernel absorbs, written IN PLACE.
+
+    k_new/v_new: (B, Hkv, Dh), written to ``page_table[b, len // page]``
+    at offset ``len % page`` for rows with ``0 <= lengths[b]`` whose slot
+    lies inside the table.  Padding rows are masked out, never routed to
+    an out-of-range page: torch has no drop mode for a scatter.  Returns
+    the pools it was given.
+    """
+    ps, n_pages = k_pages.shape[1], page_table.shape[1]
+    rows = torch.nonzero((lengths >= 0) & (lengths // ps < n_pages)
+                         ).squeeze(1)
+    pos = lengths[rows].long()
+    wp = page_table[rows, pos // ps].long()
+    wo = pos % ps
+    k_pages[wp, wo] = k_new[rows].to(k_pages.dtype)
+    v_pages[wp, wo] = v_new[rows].to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+def fused_paged_decode_attention_ref(q, k_pages, v_pages, page_table,
+                                     lengths, k_new, v_new,
+                                     return_lse: bool = False):
+    """Scatter-then-attend: the function the fused kernel computes.  The
+    pools are updated in place.  Returns ``(out, k_pages, v_pages)`` (plus
+    ``m, l`` between out and the pools with ``return_lse``)."""
+    k_pages, v_pages = scatter_append_ref(
+        k_pages, v_pages, page_table, lengths, k_new, v_new)
+    res = paged_decode_attention_ref(
+        q, k_pages, v_pages, page_table, lengths, return_lse=return_lse)
+    if return_lse:
+        out, m, l = res
+        return out, m, l, k_pages, v_pages
+    return res, k_pages, v_pages

@@ -1,0 +1,285 @@
+"""The port's plain kernel versions against the JAX package's, on the CPU.
+
+Mirrors the sweeps of ``tests/test_kernels.py``: the same inputs, made
+from a numpy seed, go through the JAX reference (or the Pallas kernel in
+interpret mode) and through the port's wrapper, which on CPU tensors
+runs the plain version and launches nothing.  Tolerances: f32 2e-5 (the
+two frameworks sum in different orders), bf16 3e-2 (one bf16 rounding
+of the output or of the probs may land on the other side), bitwise for
+the pool contents, which are copied, never computed.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import common as jcommon  # noqa: E402
+from repro.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention as j_flash)
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref as j_flash_ref)
+from repro.kernels.paged_decode_attention.ops import (  # noqa: E402
+    fused_paged_decode_attention as j_fused,
+    paged_decode_attention as j_paged)
+from repro.kernels.paged_decode_attention.ref import (  # noqa: E402
+    fused_paged_decode_attention_ref as j_fused_ref,
+    paged_decode_attention_ref as j_paged_ref)
+from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.common import NEG_INF  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
+    ops as pd_ops)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny CPU shapes gain nothing from torch's thread pool, and its
+    spinning threads would slow the tests other workers run meanwhile."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+RNG = np.random.default_rng(7)
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(a, dtype):
+    """The same values as a JAX array and a torch tensor."""
+    jd, td = DTYPES[dtype]
+    a = np.asarray(a, np.float32)
+    return jnp.asarray(a, jd), torch.from_numpy(a.copy()).to(td)
+
+
+def _ints(a):
+    a = np.asarray(a, np.int32)
+    return jnp.asarray(a), torch.from_numpy(a.copy())
+
+
+def _close(t_out, j_out, tol, exact=False):
+    a = t_out.float().numpy()
+    b = np.asarray(j_out, np.float32)
+    if exact:
+        np.testing.assert_array_equal(a, b)
+    else:
+        np.testing.assert_allclose(a, b, atol=tol, rtol=tol)
+
+
+def _tol(dtype):
+    return 2e-5 if dtype == "float32" else 3e-2
+
+
+# ---------------------------------------------------------------- flash
+
+def _flash_inputs(B, Sq, Skv, H, Hkv, Dh, dtype):
+    q = _pair(RNG.normal(size=(B, Sq, H, Dh)), dtype)
+    k = _pair(RNG.normal(size=(B, Skv, Hkv, Dh)), dtype)
+    v = _pair(RNG.normal(size=(B, Skv, Hkv, Dh)), dtype)
+    qp = _ints(np.broadcast_to(np.arange(Skv - Sq, Skv), (B, Sq)))
+    kp = _ints(np.broadcast_to(np.arange(Skv), (B, Skv)))
+    return q, k, v, qp, kp
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,Dh", [
+    (1, 32, 32, 2, 2, 8), (2, 64, 64, 4, 2, 16), (2, 16, 64, 8, 1, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 24])
+def test_flash_sweep_matches_jax_ref(B, Sq, Skv, H, Hkv, Dh, dtype, window):
+    q, k, v, qp, kp = _flash_inputs(B, Sq, Skv, H, Hkv, Dh, dtype)
+    out = fa_ops.flash_attention(q[1], k[1], v[1], q_positions=qp[1],
+                                 kv_positions=kp[1], window=window)
+    ref = j_flash_ref(q[0], k[0], v[0], q_positions=qp[0],
+                      kv_positions=kp[0], causal=True, window=window)
+    assert out.dtype == q[1].dtype
+    _close(out, ref, _tol(dtype))
+
+
+def test_flash_matches_pallas_interpret_and_no_valid_key_gives_mean_v():
+    q, k, v, qp, kp = _flash_inputs(2, 32, 48, 4, 2, 16, "float32")
+    qp_np = np.array(qp[1].numpy())
+    qp_np[1, :3] = -1                         # rows with no valid key
+    qp = _ints(qp_np)
+    out = fa_ops.flash_attention(q[1], k[1], v[1], q_positions=qp[1],
+                                 kv_positions=kp[1], window=8)
+    pallas = j_flash(q[0], k[0], v[0], q_positions=qp[0],
+                     kv_positions=kp[0], causal=True, window=8, block_q=16,
+                     block_kv=16, interpret=True)
+    _close(out, pallas, 2e-5)
+    mean_v = v[1][1].mean(dim=0).repeat_interleave(2, dim=0)   # (H, Dh)
+    for row in range(3):
+        torch.testing.assert_close(out[1, row], mean_v, atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
+    q, k, v, qp, kp = _flash_inputs(1, 16, 16, 2, 2, 8, "float32")
+    n_fa, n_pd = fa_ops.launches, pd_ops.launches
+    fa_ops.flash_attention(q[1], k[1], v[1], q_positions=qp[1],
+                           kv_positions=kp[1])
+    qd, kpool, vpool, pt, lens = _paged_case()
+    pd_ops.paged_decode_attention(qd[1], kpool[1], vpool[1], pt[1], lens[1])
+    kn, vn = _new_kv(3, 2, 16, "float32")
+    pd_ops.fused_paged_decode_attention(qd[1], kpool[1], vpool[1], pt[1],
+                                        lens[1], kn[1], vn[1])
+    assert (fa_ops.launches, pd_ops.launches) == (n_fa, n_pd)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q[1], k[1], v[1], q_positions=qp[1].long(),
+                               kv_positions=kp[1])
+    with pytest.raises(ValueError):
+        pd_ops.paged_decode_attention(qd[1], kpool[1], vpool[1], pt[1],
+                                      lens[1], variant="nope")
+
+
+# ---------------------------------------------------------- paged decode
+
+def _paged_case(B=3, NP=5, ps=8, H=4, Hkv=2, Dh=16, seed=11,
+                dtype="float32"):
+    """Shuffled pool, lengths ending mid-page, rows 0/1 aliasing their
+    first two pages, one padding row (tests/test_kernels.py:141)."""
+    rng = np.random.default_rng(seed)
+    P = 2 * B * NP
+    q = _pair(rng.normal(size=(B, H, Dh)), dtype)
+    kp = _pair(rng.normal(size=(P, ps, Hkv, Dh)), dtype)
+    vp = _pair(rng.normal(size=(P, ps, Hkv, Dh)), dtype)
+    pt = np.asarray(rng.permutation(P)[:B * NP].reshape(B, NP), np.int32)
+    pt[1, :2] = pt[0, :2]
+    lens = np.asarray(rng.integers(2 * ps + 1, NP * ps - 2, size=(B,)),
+                      np.int32)
+    lens = np.where(lens % ps == 0, lens + 1, lens)
+    lens[-1] = -1
+    return q, kp, vp, _ints(pt), _ints(lens)
+
+
+def _new_kv(B, Hkv, Dh, dtype, seed=99):
+    rng = np.random.default_rng(seed)
+    return (_pair(rng.normal(size=(B, Hkv, Dh)), dtype),
+            _pair(rng.normal(size=(B, Hkv, Dh)), dtype))
+
+
+@pytest.mark.parametrize("B,NP,ps,H,Hkv,Dh", [
+    (2, 4, 8, 4, 2, 16), (1, 3, 16, 8, 8, 8), (3, 5, 8, 6, 1, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_sweep_matches_jax_ref(B, NP, ps, H, Hkv, Dh, dtype):
+    """Shuffled pool, every row ending mid-page, one padded row when the
+    batch allows (tests/test_kernels.py:89)."""
+    P = 2 * B * NP
+    q = _pair(RNG.normal(size=(B, H, Dh)), dtype)
+    kp = _pair(RNG.normal(size=(P, ps, Hkv, Dh)), dtype)
+    vp = _pair(RNG.normal(size=(P, ps, Hkv, Dh)), dtype)
+    pt = _ints(RNG.permutation(P)[:B * NP].reshape(B, NP))
+    lens = np.asarray(RNG.integers((NP - 1) * ps, NP * ps - 1, size=(B,)),
+                      np.int32)
+    lens = np.where(lens % ps == 0, lens + 1, lens)
+    if B > 1:
+        lens[-1] = -1
+    lens = _ints(lens)
+    for variant in ("single", "blocked"):
+        out = pd_ops.paged_decode_attention(q[1], kp[1], vp[1], pt[1],
+                                            lens[1], variant=variant)
+        ref = j_paged_ref(q[0], kp[0], vp[0], pt[0], lens[0])
+        _close(out, ref, _tol(dtype))
+
+
+def test_paged_aliased_pages_and_lse_match_jax():
+    B, NP, ps, H, Hkv, Dh, P = 2, 3, 8, 4, 2, 16, 8
+    q = _pair(RNG.normal(size=(B, H, Dh)), "float32")
+    kp = _pair(RNG.normal(size=(P, ps, Hkv, Dh)), "float32")
+    vp = _pair(RNG.normal(size=(P, ps, Hkv, Dh)), "float32")
+    pt = _ints([[0, 1, 2], [0, 1, 4]])
+    lens = _ints([ps * 2 + 3, ps * 2 + 5])
+    out, m, l = pd_ops.paged_decode_attention(q[1], kp[1], vp[1], pt[1],
+                                              lens[1], return_lse=True)
+    ref, mr, lr = j_paged_ref(q[0], kp[0], vp[0], pt[0], lens[0],
+                              return_lse=True)
+    for a, b in ((out, ref), (m, mr), (l, lr)):
+        _close(a, b, 2e-5)
+
+
+def test_paged_matches_pallas_single_in_interpret_mode():
+    q, kp, vp, pt, lens = _paged_case()
+    out, m, l = pd_ops.paged_decode_attention(
+        q[1], kp[1], vp[1], pt[1], lens[1], variant="single",
+        return_lse=True)
+    jo, jm, jl = j_paged(q[0], kp[0], vp[0], pt[0], lens[0],
+                         variant="single", return_lse=True, interpret=True)
+    for a, b in ((out, jo), (m, jm), (l, jl)):
+        _close(a, b, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_matches_jax_ref_outputs_and_pools(dtype):
+    """Fused append+attend against the JAX scatter-then-attend oracle: the
+    outputs, the (m, l) state and the pool contents afterwards."""
+    q, kp, vp, pt, lens = _paged_case(seed=13, dtype=dtype)
+    kn, vn = _new_kv(3, 2, 16, dtype)
+    jo, jm, jl, jk, jv = j_fused_ref(q[0], kp[0], vp[0], pt[0], lens[0],
+                                     kn[0], vn[0], return_lse=True)
+    k_pool, v_pool = kp[1].clone(), vp[1].clone()
+    out, m, l, k_out, v_out = pd_ops.fused_paged_decode_attention(
+        q[1], k_pool, v_pool, pt[1], lens[1], kn[1], vn[1],
+        return_lse=True)
+    assert k_out is k_pool and v_out is v_pool          # in place
+    _close(out, jo, _tol(dtype))
+    _close(m, jm, 2e-5)
+    _close(l, jl, 2e-5)
+    _close(k_out, jk, 0, exact=True)
+    _close(v_out, jv, 0, exact=True)
+
+
+def test_fused_matches_pallas_fused_in_interpret_mode():
+    q, kp, vp, pt, lens = _paged_case(seed=13)
+    kn, vn = _new_kv(3, 2, 16, "float32")
+    jo, jk, jv = j_fused(q[0], kp[0], vp[0], pt[0], lens[0], kn[0], vn[0],
+                         pages_per_block=2, interpret=True)
+    out, k_out, v_out = pd_ops.fused_paged_decode_attention(
+        q[1], kp[1].clone(), vp[1].clone(), pt[1], lens[1], kn[1], vn[1])
+    _close(out, jo, 2e-5)
+    _close(k_out, jk, 0, exact=True)
+    _close(v_out, jv, 0, exact=True)
+
+
+def test_fused_padding_row_writes_nothing_and_is_pinned():
+    q, kp, vp, pt, lens = _paged_case(seed=17)
+    k_pool, v_pool = kp[1].clone(), vp[1].clone()
+    out, m, l, _, _ = pd_ops.fused_paged_decode_attention(
+        q[1], k_pool, v_pool, pt[1], lens[1],
+        torch.full((3, 2, 16), 1e6), torch.full((3, 2, 16), -1e6),
+        return_lse=True)
+    for pg in pt[1][-1].tolist():
+        assert not torch.any(k_pool[pg] == 1e6)
+        assert not torch.any(v_pool[pg] == -1e6)
+    assert torch.all(out[-1] == 0)
+    assert torch.all(m[-1] == np.float32(NEG_INF)) and torch.all(l[-1] == 0)
+
+
+# ------------------------------------------------------ online softmax
+
+def test_online_softmax_update_and_finalize_match_jax():
+    R, C, Dh = 4, 8, 16
+    logits = RNG.normal(size=(R, C)).astype(np.float32)
+    mask = RNG.random(size=(R, C)) > 0.3
+    mask[2] = False                              # a fully masked row
+    v = RNG.normal(size=(C, Dh)).astype(np.float32)
+    acc = RNG.normal(size=(R, Dh)).astype(np.float32)
+    acc[2] = 0.0
+    m = RNG.normal(size=(R,)).astype(np.float32)
+    m[2] = NEG_INF
+    l = np.abs(RNG.normal(size=(R,))).astype(np.float32)
+    l[2] = 0.0
+    t = [torch.from_numpy(x.copy()) for x in (logits, mask, v, acc, m, l)]
+    j = [jnp.asarray(x) for x in (logits, mask, v, acc, m, l)]
+    t_state = common.online_softmax_update(*t)
+    j_state = jcommon.online_softmax_update(*j)
+    for a, b in zip(t_state, j_state):
+        _close(a, b, 2e-5)
+    for a, b in zip(common.finalize_online_softmax(*t_state),
+                    jcommon.finalize_online_softmax(*j_state)):
+        _close(a, b, 2e-5)
+    out, m_fin, _ = common.finalize_online_softmax(*t_state)
+    assert torch.all(out[2] == 0) and m_fin[2] == np.float32(NEG_INF)
+    _close(common.qk_logits(t[3], t[2], 0.25),
+           jcommon.qk_logits(j[3], j[2], 0.25), 2e-5)
