@@ -12,15 +12,23 @@ each:
 1. environment: card name and power limit, torch/CUDA versions, build time;
 2. kernels: every CUDA kernel against its plain PyTorch version on the
    card (hostile paged layout, padding-row poison, single == blocked and
-   fused == scatter-then-attend bitwise, the flash sweep, and the
-   engine's full-width shapes with kernel / plain / library times and the
-   card's lower bound);
+   fused == scatter-then-attend bitwise, the flash sweep up to Dh=256,
+   decode attention over wrapped rings with empty slots, a window and a
+   row with no valid key, the RG-LRU scan bitwise, and the main paths'
+   full-width shapes with kernel / plain / library times and the card's
+   lower bound);
 3. engine: full-width qwen3-1.7b (random weights from a seed) served by
    the continuous-batching ``InferenceEngine``: prefix sharing with a
    copy-on-write partial page, a coalesced duplicate, a request admitted
    mid-decode; the kernels' launch counters must move and the plain
    versions must not run; the CUDA and plain decode steps must agree;
-4. a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and the
+   then the same model on the dense-view arm (``paged_decode=False``),
+   which decodes in the decode_attention kernel;
+4. hybrid: full-width recurrentgemma-2b served through the engine's
+   dense-row path (flash prefill at Dh=256, the RG-LRU scan, decode
+   attention over the ring), its step profile and parity, and a prompt
+   past the 2048-token window held against the teacher-forced forward;
+5. a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and the
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the last
@@ -28,6 +36,7 @@ line.  Without a CUDA device it exits 2 before doing anything.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -105,6 +114,479 @@ def bound(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def ring_positions(np, qp, T):
+    """(B, T) positions of a ring of T slots written up to ``qp``: slot s
+    holds the newest position q <= qp with q = s (mod T), -1 if none."""
+    kp = qp[:, None] - np.mod(qp[:, None] - np.arange(T)[None, :], T)
+    return np.where(kp >= 0, kp, -1).astype(np.int32)
+
+
+def kernels_decode(torch, F, t, rng, da_ops, decode_attention_ref,
+                   lse_combine, NEG_INF):
+    """The decode kernel against its plain version on hostile rings, then
+    timed at the hybrid's decode shape.  Returns its kernels entry."""
+    import numpy as np
+    dev = torch.device("cuda")
+    for (B, T, H, Hkv, Dh) in ((4, 96, 10, 1, 256), (4, 100, 16, 8, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for window in (0, 37):
+                q = t(rng.normal(size=(B, H, Dh)), dtype)
+                k = t(rng.normal(size=(B, T, Hkv, Dh)), dtype)
+                v = t(rng.normal(size=(B, T, Hkv, Dh)), dtype)
+                qp = np.asarray([2 * T + 5, T // 2, 3 * T - 1, 7])
+                kp = ring_positions(np, qp, T)
+                kp[-1] = -1                     # padding row: no valid key
+                qp_d = torch.as_tensor(qp, dtype=torch.int32).to(dev)
+                kp_d = torch.as_tensor(kp).to(dev)
+                out, m, l = da_ops.decode_attention(
+                    q, k, v, q_positions=qp_d, kv_positions=kp_d,
+                    window=window, return_lse=True)
+                ref, mr, lr = decode_attention_ref(
+                    q, k, v, q_positions=qp_d, kv_positions=kp_d,
+                    window=window, return_lse=True)
+                tol = 2e-5 if dtype == torch.float32 else 3e-2
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           atol=tol, rtol=tol)
+                torch.testing.assert_close(m, mr, atol=2e-5, rtol=2e-5)
+                torch.testing.assert_close(l, lr, atol=2e-5, rtol=2e-5)
+                assert torch.all(out[-1] == 0) and torch.all(
+                    m[-1] == NEG_INF) and torch.all(l[-1] == 0), "pin"
+                half = T // 2
+                parts = [da_ops.decode_attention(
+                    q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+                    q_positions=qp_d, kv_positions=kp_d[:, sl].contiguous(),
+                    window=window, return_lse=True)
+                    for sl in (slice(0, half), slice(half, T))]
+                torch.testing.assert_close(lse_combine(parts).float(),
+                                           out.float(), atol=tol, rtol=tol)
+    torch.cuda.synchronize()
+    log("kernels.decode_attention",
+        sweep="G=10/Dh=256 and G=2/Dh=128 x f32/bf16 x window 0/37",
+        cases="wrapped ring, unwrapped ring with -1 slots, padding row",
+        vs_plain="ok", padding_row="pinned(0,NEG_INF,0)",
+        split_halves_lse_combine="ok")
+
+    # the hybrid's decode step: B=8 rows over a 512-slot ring (engine
+    # defaults: max_seq_len 512 under the 2048 window), bf16; sixteen
+    # layers' caches are cycled (67 MB, past the 50 MB L2), as the eight
+    # attention blocks of a step and the weights between them would evict
+    B, T, H, Hkv, Dh, NL = 8, 512, 10, 1, 256, 16
+    q = t(rng.normal(size=(B, H, Dh)), torch.bfloat16)
+    ks = t(rng.normal(size=(NL, B, T, Hkv, Dh)), torch.bfloat16)
+    vs = t(rng.normal(size=(NL, B, T, Hkv, Dh)), torch.bfloat16)
+    qp = np.asarray(rng.integers(100, 432, size=(B,)))
+    kp = ring_positions(np, qp, T)
+    qp_d = torch.as_tensor(qp, dtype=torch.int32).to(dev)
+    kp_d = torch.as_tensor(kp).to(dev)
+    layer = [0]
+
+    def run():
+        i = layer[0] = (layer[0] + 1) % NL
+        return da_ops.decode_attention(q, ks[i], vs[i], q_positions=qp_d,
+                                       kv_positions=kp_d)
+
+    def plain():
+        i = layer[0] = (layer[0] + 1) % NL
+        return decode_attention_ref(q, ks[i], vs[i], q_positions=qp_d,
+                                    kv_positions=kp_d)
+
+    qs = q[:, :, None, :]                                  # (B,H,1,Dh)
+    kt, vt = ks.transpose(2, 3), vs.transpose(2, 3)        # (NL,B,Hkv,T,Dh)
+    mask = (kp_d >= 0)[:, None, None, :]
+
+    def library():
+        i = layer[0] = (layer[0] + 1) % NL
+        return F.scaled_dot_product_attention(qs, kt[i], vt[i],
+                                              attn_mask=mask,
+                                              enable_gqa=True)
+
+    err = (da_ops.decode_attention(q, ks[0], vs[0], q_positions=qp_d,
+                                   kv_positions=kp_d).float()
+           - decode_attention_ref(q, ks[0], vs[0], q_positions=qp_d,
+                                  kv_positions=kp_d).float()
+           ).abs().max().item()
+    assert err < 3e-2, f"decode main shape err {err}"
+    # the work depends on the data: only the valid slots' K/V must be read
+    valid = int((kp_d >= 0).sum().item())
+    nbytes = 2 * q.numel() * 2 + 2 * valid * Hkv * Dh * 2 + 2 * B * H * 4 \
+        + 4 * (kp_d.numel() + B)
+    b_ms, b_by = bound(nbytes, 4 * Dh * H * valid, "bfloat16")
+    entry = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+        "launches": None, "max_abs_err": err,
+        "ms": time_ms(torch, run, iters=48),
+        "plain_ms": time_ms(torch, plain, iters=16),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(torch, library, iters=48)}
+    log("kernels.decode_attention_main",
+        shape=f"B={B},T={T},H={H},Hkv={Hkv},Dh={Dh},bf16,valid_keys={valid}",
+        max_abs_err=f"{err:.3e}", tolerance=3e-2, ms=f"{entry['ms']:.4f}",
+        plain_ms=f"{entry['plain_ms']:.4f}",
+        library_ms=f"{entry['library_ms']:.4f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=b_by, bytes=nbytes)
+    return entry
+
+
+def kernels_scan(torch, rng, lru_ops, linear_scan_ref):
+    """The RG-LRU scan bitwise against its plain version, then timed at
+    the hybrid's prefill shape.  Returns its kernels entry."""
+    dev = torch.device("cuda")
+
+    def inputs(B, S, D):
+        a = torch.as_tensor(rng.uniform(0.5, 1.0, size=(B, S, D)),
+                            dtype=torch.float32).to(dev)
+        b = torch.as_tensor(rng.normal(size=(B, S, D)),
+                            dtype=torch.float32).to(dev)
+        return a, b
+
+    for shape in ((2, 37, 70), (3, 5, 1), (1, 9, 2560)):
+        a, b = inputs(*shape)
+        assert torch.equal(lru_ops.linear_scan(a, b),
+                           linear_scan_ref(a, b)), shape
+    B, S, D = 1, 384, 2560
+    a, b = inputs(B, S, D)
+    h = lru_ops.linear_scan(a, b)
+    assert torch.equal(h, linear_scan_ref(a, b)), "main shape"
+    nbytes = 3 * B * S * D * 4
+    b_ms, b_by = bound(nbytes, 2 * B * S * D, "float32")
+    entry = {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:42",
+        "launches": None, "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: lru_ops.linear_scan(a, b), iters=50),
+        "plain_ms": time_ms(torch, lambda: linear_scan_ref(a, b), iters=3,
+                            warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library_note": "no single PyTorch call computes "
+                        "h_t = a_t*h_{t-1} + b_t"}
+    log("kernels.rglru_scan", bitwise_shapes="(2,37,70),(3,5,1),(1,9,2560),"
+        "(1,384,2560)", vs_plain="bitwise",
+        main_shape=f"B={B},S={S},D={D},f32", ms=f"{entry['ms']:.4f}",
+        plain_ms=f"{entry['plain_ms']:.4f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=b_by, library_ms="none (no single PyTorch call)")
+    return entry
+
+
+def kernels_flash_hybrid(torch, F, t, rng, fa_ops, flash_attention_ref):
+    """The flash kernel at the hybrid's prefill shape (one 384-token
+    prompt, MQA, Dh=256, window 2048), bf16: error, times, bound."""
+    dev = torch.device("cuda")
+    B, S, H, Hkv, Dh, window = 1, 384, 10, 1, 256, 2048
+    q = t(rng.normal(size=(B, S, H, Dh)), torch.bfloat16)
+    k = t(rng.normal(size=(B, S, Hkv, Dh)), torch.bfloat16)
+    v = t(rng.normal(size=(B, S, Hkv, Dh)), torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(
+        B, S).contiguous()
+
+    def run():
+        return fa_ops.flash_attention(q, k, v, q_positions=pos,
+                                      kv_positions=pos, window=window)
+
+    def plain():
+        return flash_attention_ref(q, k, v, q_positions=pos,
+                                   kv_positions=pos, window=window)
+
+    mask = (pos[:, None, :, None] >= pos[:, None, None, :]) \
+        & (pos[:, None, None, :] > pos[:, None, :, None] - window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    err = (run().float() - plain().float()).abs().max().item()
+    assert err < 3e-2, f"flash hybrid shape err {err}"
+    pairs = int(mask.sum().item())
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + 4 * 2 * pos.numel()
+    b_ms, b_by = bound(nbytes, 4 * Dh * H * pairs, "bfloat16")
+    log("kernels.flash_hybrid", shape=f"B={B},Sq=Skv={S},H={H},Hkv={Hkv},"
+        f"Dh={Dh},window={window},bf16", max_abs_err=f"{err:.3e}",
+        tolerance=3e-2, ms=f"{time_ms(torch, run):.4f}",
+        plain_ms=f"{time_ms(torch, plain):.4f}",
+        library_ms=f"{time_ms(torch, library):.4f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=b_by)
+
+
+def first_difference(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,
+                      pd_ops, InferenceEngine):
+    """qwen3-1.7b on the engine's dense-view arm (``paged_decode=False``):
+    rows gathered from the pages into a dense view, decode_step in the
+    decode_attention kernel, each step's K/V appended back to the pages.
+    Held against the paged run of the same weights."""
+    dev = torch.device("cuda")
+    cfg = eng.cfg
+    dv = InferenceEngine(cfg, seed=0, paged_decode=False)
+    dv.load(eng.model.state_dict())
+    step_s = []
+    orig = dv._decode_once
+
+    def timed_decode():
+        t0 = time.perf_counter()
+        orig()
+        step_s.append(time.perf_counter() - t0)
+
+    dv._decode_once = timed_decode
+    names = ("cold_c", "cold_d", "share_a")
+    da_ops.launches = 0
+    pd_ops.launches = 0
+    handles = {n: dv.submit(prompts[n], max_new_tokens=max_new)
+               for n in names}
+    res = {n: h.result(timeout=600) for n, h in handles.items()}
+    dv.drain()              # the last step's timer appends after results
+    torch.cuda.synchronize()
+    da_n, pd_n = da_ops.launches, pd_ops.launches
+    n_steps = len(step_s)
+    assert all(len(r) == max_new for r in res.values()), "short output"
+    assert pd_n == 0 and n_steps > 0 \
+        and da_n == cfg.num_layers * n_steps, (da_n, pd_n, n_steps)
+    dv._decode_once = orig
+    log("engine.dense_view", model="qwen3-1.7b(full width, 28 layers)",
+        paged_decode=False, requests=len(names), decode_steps=n_steps,
+        decode_attention_launches=da_n,
+        launches_per_step=f"{da_n / n_steps:.1f}", paged_launches=pd_n,
+        view_rebuilds=dv.stats.view_rebuilds,
+        mean_step_ms=f"{1e3 * sum(step_s) / n_steps:.3f}",
+        tokens_equal_paged=json.dumps({n: res[n] == outs[n] for n in names}),
+        first_differing_token=json.dumps(
+            {n: first_difference(res[n], outs[n]) for n in names}))
+
+    # one step over the same pages: the dense view (decode kernel) against
+    # the paged step (paged kernel), bf16 activations through 28 layers
+    model, kv = dv.model, dv.kv
+    seqs = list(dv._warm)[:3]
+    lens = [kv.sequences[s].length for s in seqs]
+    layers_, heads, dh = dv._paged_layout
+    k_rows = torch.zeros((3, layers_, dv._round_t(max(lens) + 1), heads, dh),
+                         dtype=model.dtype, device=dev)
+    v_rows = torch.zeros_like(k_rows)
+    for i, s in enumerate(seqs):
+        kr, vr = kv.gather(s)
+        k_rows[i, :, :lens[i]] = kr
+        v_rows[i, :, :lens[i]] = vr
+    tok = torch.tensor([11, 12, 13], dtype=torch.int32, device=dev)
+    dense, _ = model.decode_step(tok, model.paged_cache_view(k_rows, v_rows,
+                                                             lens))
+    kv.prepare_appends(seqs)
+    n_pages = max(len(kv.sequences[s].page_ids) for s in seqs)
+    pt = np.zeros((3, n_pages), np.int32)
+    for i, s in enumerate(seqs):
+        pt[i, :len(kv.sequences[s].page_ids)] = kv.sequences[s].page_ids
+    paged, _, _ = model.paged_decode_step(
+        tok, kv.k.clone(), kv.v.clone(), torch.as_tensor(pt).to(dev),
+        torch.tensor(lens, dtype=torch.int32, device=dev))
+    diff = (dense.float() - paged.float()).abs().max().item()
+    scale = paged.float().abs().max().item()
+    assert bool(torch.isfinite(dense).all()) and diff <= 5e-2 * scale, \
+        (diff, scale)
+    log("engine.dense_view_parity", rows=3, max_abs_diff=f"{diff:.4e}",
+        logit_scale=f"{scale:.4e}", tolerance="5e-2*scale",
+        same_argmax=torch.equal(dense.argmax(-1), paged.argmax(-1)))
+    dv.shutdown()
+
+
+def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
+                  da_ops, lru_ops, pd_ops, plain_calls):
+    """Full-width recurrentgemma-2b through the engine's dense-row path,
+    then its step profile, parity, batch invariance and the ring past the
+    window.  Returns the launches of its main path, by kernel."""
+    dev = torch.device("cuda")
+    cfg = get_config("recurrentgemma-2b")
+    eng = InferenceEngine(cfg, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    load_s = eng.load()
+    n_params = sum(p.numel() for p in eng.model.parameters())
+    words = np.random.default_rng(5)
+
+    def text(n):
+        return " ".join(f"w{int(x)}" for x in words.integers(0, 10**6, n))
+
+    vocab = cfg.vocab_size
+    prompts = {"a": tokenizer.tokenize(text(379), vocab),
+               "b": tokenizer.tokenize(text(149), vocab),
+               "c": tokenizer.tokenize(text(229), vocab),
+               "d": tokenizer.tokenize(text(99), vocab),
+               "late_e": tokenizer.tokenize(text(301), vocab)}
+    assert all(100 <= len(p) <= 400 for p in prompts.values())
+    max_new = 32
+
+    step_s, admit_s = [], []
+    orig_decode, orig_admit = eng._decode_once, eng._admit_one
+
+    def timed_decode():
+        t0 = time.perf_counter()
+        orig_decode()
+        step_s.append(time.perf_counter() - t0)
+
+    def timed_admit(req):
+        t0 = time.perf_counter()
+        slot = orig_admit(req)
+        admit_s.append(time.perf_counter() - t0)
+        return slot
+
+    eng._decode_once, eng._admit_one = timed_decode, timed_admit
+    for ops in (fa_ops, da_ops, lru_ops, pd_ops):
+        ops.launches = 0
+    plain0 = plain_calls["n"]
+    t_run = time.perf_counter()
+    handles = {n: eng.submit(prompts[n], max_new_tokens=max_new)
+               for n in ("a", "b", "c", "d")}
+    handles["dup_a"] = eng.submit(prompts["a"], max_new_tokens=max_new)
+    deadline = time.monotonic() + 300
+    while eng.stats.decode_tokens < 1:
+        assert time.monotonic() < deadline, "engine made no decode step"
+        time.sleep(0.001)
+    handles["late_e"] = eng.submit(prompts["late_e"], max_new_tokens=max_new)
+    outs = {n: h.result(timeout=600) for n, h in handles.items()}
+    eng.drain()             # the last step's timer appends after results
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = {"flash_attention": fa_ops.launches,
+                "decode_attention": da_ops.launches,
+                "rglru_scan": lru_ops.launches,
+                "paged_decode_attention": pd_ops.launches}
+    eng._decode_once, eng._admit_one = orig_decode, orig_admit
+    st = eng.stats
+    assert all(len(o) == max_new for o in outs.values()), "short output"
+    assert outs["dup_a"] == outs["a"]
+    assert st.coalesced_requests >= 1 and st.peak_batch >= 2, st.as_dict()
+    assert launches["flash_attention"] > 0 \
+        and launches["decode_attention"] > 0 \
+        and launches["rglru_scan"] > 0 \
+        and launches["paged_decode_attention"] == 0, launches
+    assert plain_calls["n"] == plain0, "a plain version ran on the CUDA path"
+    assert eng.kv is None, "the dense-row path allocated pages"
+    n_steps, admitted = len(step_s), len(admit_s)
+    log("hybrid.run", model="recurrentgemma-2b(full width, 26 blocks)",
+        params=n_params, requests=len(handles), admitted=admitted,
+        tokens_each=max_new, coalesced=st.coalesced_requests,
+        peak_batch=st.peak_batch, admission_waves=st.admission_waves,
+        view_rebuilds=st.view_rebuilds, decode_steps=n_steps,
+        decode_tokens=st.decode_tokens, kv_pages="none",
+        load_s=f"{load_s:.3f}", run_s=f"{run_s:.3f}")
+    decode_s = sum(step_s)
+    log("hybrid.perf", decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
+        mean_step_ms=f"{1e3 * decode_s / n_steps:.3f}",
+        prefill_ms_per_request=f"{1e3 * sum(admit_s) / admitted:.3f}",
+        launches=json.dumps(launches),
+        decode_attention_per_step=
+        f"{launches['decode_attention'] / n_steps:.1f}",
+        flash_per_request=f"{launches['flash_attention'] / admitted:.1f}",
+        rglru_scan_per_request=f"{launches['rglru_scan'] / admitted:.1f}",
+        max_memory_allocated_gib=
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        plain_calls=plain_calls["n"] - plain0)
+
+    # a B=8 decode view of one prefilled 380-token row, and one prefill
+    model = eng.model
+    toks_a = torch.as_tensor([prompts["a"]], dtype=torch.int32, device=dev)
+    _, cache = model.prefill(toks_a)
+    row = model.extend_cache(cache, eng.max_seq_len - toks_a.shape[1])
+    axes = model.cache_batch_axes(row)
+    view = {k: torch.cat([row[k]] * 8, dim=ax) for k, ax in axes.items()}
+    tok8 = torch.arange(8, dtype=torch.int32, device=dev) + 11
+
+    def decode_step():
+        model.decode_step(tok8, view)
+
+    def prefill():
+        model.prefill(toks_a)
+
+    for what, fn, n in (("decode_step(B=8,T=512)", decode_step, 5),
+                        ("prefill(S=380)", prefill, 2)):
+        wall_ms, busy_ms, top = profile_calls(torch, fn, n)
+        log("hybrid.profile", call=what, calls=n,
+            wall_ms_per_call=f"{wall_ms:.3f}",
+            device_busy_ms_per_call=f"{busy_ms:.3f}",
+            device_busy_share=f"{busy_ms / wall_ms:.3f}",
+            top_kernels_ms_per_call=json.dumps(top))
+
+    # one decode step under impl="cuda" and under impl="torch" on copies
+    # of the same view
+    logits = {}
+    for impl in ("cuda", "torch"):
+        lg, _ = model.decode_step(tok8, {k: v.clone() for k, v in
+                                         view.items()}, impl=impl)
+        assert lg.shape == (8, cfg.padded_vocab) and bool(
+            torch.isfinite(lg).all()), impl
+        logits[impl] = lg.float()
+    diff = (logits["cuda"] - logits["torch"]).abs().max().item()
+    scale = logits["torch"].abs().max().item()
+    assert diff <= 5e-2 * scale, (diff, scale)
+    log("hybrid.step_parity", rows=8, max_abs_diff=f"{diff:.4e}",
+        logit_scale=f"{scale:.4e}", tolerance="5e-2*scale",
+        same_argmax=torch.equal(logits["cuda"].argmax(-1),
+                                logits["torch"].argmax(-1)))
+    del view, row, cache
+
+    # batch invariance: the first request, decoded again alone
+    alone = eng.generate([prompts["a"]], max_new_tokens=max_new)[0]
+    log("hybrid.batch_invariance", request="a", batched_vs_alone=
+        "equal" if alone == outs["a"] else "differ",
+        first_differing_token=first_difference(alone, outs["a"]))
+    eng.shutdown()
+    hybrid_ring(torch, model, words, vocab)
+    return launches
+
+
+def hybrid_ring(torch, model, words, vocab):
+    """Prefill 2100 tokens (past the 2048 window, 2100 % 2048 != 0), then
+    decode 8 under "cuda": the logits must follow the teacher-forced
+    forward, which needs position p in ring slot p % 2048.  Run on a
+    float32 copy of the weights, where the two paths differ by rounding
+    only (in bf16 their rounding differs by a few percent of the logit
+    scale on random weights, which would hide a misplaced ring); as a
+    control, the same decode from the ring placed as the JAX reference
+    places it (slots 0..T-1)."""
+    from repro_torch.engine.models import build_model
+    dev = torch.device("cuda")
+    m32 = build_model(model.cfg.replace(dtype="float32"), device=dev)
+    m32.load_state_dict(model.state_dict())        # bf16 -> f32, exact
+    S, n_dec = 2100, 8
+    T = model.cfg.local_attn_window
+    toks = torch.as_tensor(words.integers(1, vocab, S + n_dec),
+                           dtype=torch.int32, device=dev)[None]
+    full, _ = m32(toks, impl="cuda")
+    ref = full[0, S - 1:].clone()
+    del full
+    logits, cache = m32.prefill(toks[:, :S], impl="cuda")
+    assert cache["g2_k"].shape[2] == T
+    misplaced = {k: (torch.roll(v, -(S % T), dims=2)
+                     if k.endswith("_k") or k.endswith("_v") else v.clone())
+                 for k, v in cache.items()}
+
+    def decode(cache):
+        got = [logits[0]]
+        for i in range(n_dec):
+            lg, cache = m32.decode_step(toks[:, S + i], cache, impl="cuda")
+            got.append(lg[0])
+        return torch.stack(got)
+
+    got, control = decode(cache), decode(misplaced)
+    diff = (got - ref).abs().max().item()
+    ctrl = (control - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    # f32 rounding leaves about 1.5e-5 of the scale; the misplaced ring
+    # about 1.3e-2 of it.  The limit sits between, and the control must
+    # fail it, or the check could not see a misplaced ring.
+    limit = 1e-3 * scale
+    assert bool(torch.isfinite(got).all()) and diff <= limit, (diff, scale)
+    assert ctrl > limit, (ctrl, scale)
+    log("hybrid.ring", dtype="float32", prompt=S, window=T,
+        ring_offset=S % T, decoded=n_dec, positions_checked=n_dec + 1,
+        max_abs_diff=f"{diff:.4e}", logit_scale=f"{scale:.4e}",
+        tolerance="1e-3*scale",
+        same_argmax=torch.equal(got.argmax(-1), ref.argmax(-1)),
+        control_slots_0_to_T_max_abs_diff=f"{ctrl:.4e}")
+    del m32
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -116,15 +598,20 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.engine import tokenizer
     from repro_torch.engine.engine import InferenceEngine
-    from repro_torch.engine.models import layers
+    from repro_torch.engine.models import layers, rglru
     from repro_torch.kernels import build
     from repro_torch.kernels.common import NEG_INF
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, lse_combine)
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.paged_decode_attention import ops as pd_ops
     from repro_torch.kernels.paged_decode_attention.ref import (
         fused_paged_decode_attention_ref, paged_decode_attention_ref,
         scatter_append_ref)
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.rglru_scan.ref import linear_scan_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -207,7 +694,8 @@ def main() -> int:
 
     for (B, Sq, Skv, H, Hkv, Dh) in ((1, 32, 32, 2, 2, 8),
                                      (2, 64, 64, 4, 2, 16),
-                                     (2, 16, 64, 8, 1, 32)):
+                                     (2, 16, 64, 8, 1, 32),
+                                     (1, 40, 72, 10, 1, 256)):
         for dtype in (torch.float32, torch.bfloat16):
             for window in (0, 24):
                 q = t(rng.normal(size=(B, Sq, H, Dh)), dtype)
@@ -230,7 +718,8 @@ def main() -> int:
                 torch.testing.assert_close(out[0, 0].float(), mean_v,
                                            atol=tol, rtol=tol)
     torch.cuda.synchronize()
-    log("kernels.flash", sweep="3 shapes x f32/bf16 x window 0/24",
+    log("kernels.flash", sweep="4 shapes (Dh 8..256, MQA H=10 at Dh=256) x "
+        "f32/bf16 x window 0/24",
         vs_plain="ok", no_valid_key_row="mean(V)")
 
     kernels = []
@@ -371,6 +860,12 @@ def main() -> int:
     del pools, kd, vd, ks, vs
     torch.cuda.empty_cache()
 
+    kernels.append(kernels_decode(torch, F, t, rng, da_ops,
+                                  decode_attention_ref, lse_combine, NEG_INF))
+    kernels.append(kernels_scan(torch, rng, lru_ops, linear_scan_ref))
+    kernels_flash_hybrid(torch, F, t, rng, fa_ops, flash_attention_ref)
+    torch.cuda.empty_cache()
+
     # ----------------------------------------------------------- 3. engine
     cfg = get_config("qwen3-1.7b")
     eng = InferenceEngine(cfg, seed=0)
@@ -409,6 +904,9 @@ def main() -> int:
         pd_ops.paged_decode_attention_ref)
     pd_ops.fused_paged_decode_attention_ref = counted(
         pd_ops.fused_paged_decode_attention_ref)
+    da_ops.decode_attention_ref = counted(da_ops.decode_attention_ref)
+    lru_ops.linear_scan_ref = counted(lru_ops.linear_scan_ref)
+    rglru.linear_scan_ref = counted(rglru.linear_scan_ref)
 
     step_s, admit_s = [], []
     orig_decode, orig_admit = eng._decode_paged, eng._admit_one
@@ -438,6 +936,7 @@ def main() -> int:
         time.sleep(0.001)
     handles["late_e"] = eng.submit(prompts["late_e"], max_new_tokens=max_new)
     outs = {n: h.result(timeout=600) for n, h in handles.items()}
+    eng.drain()             # the last step's timer appends after results
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     fa_launches, pd_launches = fa_ops.launches, pd_ops.launches
@@ -546,14 +1045,26 @@ def main() -> int:
     # rows, decoded again alone (cold prefill, batch of one)
     eng.release_warm()
     alone = eng.generate([prompts["cold_c"]], max_new_tokens=max_new)[0]
-    invariant = alone == outs["cold_c"]
-    first_diff = next((i for i, (a, b) in enumerate(
-        zip(alone, outs["cold_c"])) if a != b), None)
     log("engine.batch_invariance", request="cold_c", batched_vs_alone=
-        "equal" if invariant else "differ", first_differing_token=first_diff)
+        "equal" if alone == outs["cold_c"] else "differ",
+        first_differing_token=first_difference(alone, outs["cold_c"]))
     eng.shutdown()
 
-    # ------------------------------------------------------- 4. the report
+    engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,
+                      pd_ops, InferenceEngine)
+    # free qwen3's weights and pool before the hybrid loads
+    eng.unload()
+    del eng, kv, orig_decode, orig_admit
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 4. hybrid
+    hyb = hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine,
+                        fa_ops, da_ops, lru_ops, pd_ops, plain_calls)
+    kernels[2]["launches"] = hyb["decode_attention"]
+    kernels[3]["launches"] = hyb["rglru_scan"]
+
+    # ------------------------------------------------------- 5. the report
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 ``get_config(arch)`` returns the full config and ``get_smoke(arch)`` the
 reduced same-family config the CPU tests use.  The port serves the dense
-``qwen3-1.7b`` only so far; other archs raise ``KeyError`` (ROADMAP
-Queue 1 lists the families still to port).
+``qwen3-1.7b`` and the hybrid ``recurrentgemma-2b`` so far; other archs
+raise ``KeyError`` (ROADMAP Queue 1 lists the families still to port).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig, round_up
 
 _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -71,15 +71,21 @@ class ModelConfig:
         return round_up(self.vocab_size, 256)
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense transformer (embedding +
+        """Analytic parameter count of the ported families (embedding +
         blocks + head), counted as the JAX package counts it."""
         d, dh = self.d_model, self.resolved_head_dim
         h, hkv = self.num_heads, self.num_kv_heads
         embed = self.padded_vocab * d
         head = 0 if self.tie_embeddings else self.padded_vocab * d
         attn = d * h * dh + 2 * d * hkv * dh + h * dh * d
-        per_layer = 2 * d + attn + 3 * d * self.d_ff
-        return int(embed + head + d + self.num_layers * per_layer)
+        w = self.lru_width or d
+        rglru = 2 * d * w + 2 * w + self.conv1d_width * w + w * d
+        pattern = self.block_pattern or ("attn",)
+        total = embed + head + d
+        for i in range(self.num_layers):
+            mix = attn if pattern[i % len(pattern)] == "attn" else rglru
+            total += 2 * d + mix + 3 * d * self.d_ff
+        return int(total)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,6 +1,6 @@
 """InferenceEngine — continuous batching over a paged KV cache, in PyTorch.
 
-The counterpart of ``repro/engine/engine.py`` for full-attention
+The counterpart of ``repro/engine/engine.py``.  For full-attention
 transformers (the paged path):
 
 * a persistent engine loop owns a fixed-capacity decode batch; requests
@@ -22,10 +22,22 @@ transformers (the paged path):
 * greedy outputs do not depend on admission timing: rows are computed
   independently and padding is masked.
 
-The engine runs on ``device`` ("cuda" by default; it never moves to the
-CPU on its own).  The dense-view decode path of the JAX engine
-(``paged_decode=False``) and its dense-row families need the
-``decode_attention`` kernel and are not ported yet (ROADMAP Queue 2).
+Two more decode paths, as in the JAX engine:
+
+* dense rows, for models whose ``paged_kv_layout()`` is None (the hybrid
+  recurrentgemma: ring-buffer local attention plus recurrent state): no
+  pages and no prefix sharing (``kv`` stays None); each admitted request
+  keeps its prefill state as one dense cache row, and the rows are
+  stacked along ``cache_batch_axes`` into a decode view (batch padded to
+  a power of two) whenever the batch composition changes;
+* the dense view (``paged_decode=False`` on a paged model), the JAX
+  engine's A/B reference: rows are gathered from their pages into a
+  dense view, ``decode_step`` runs over it, and each step's new K/V
+  (``decode_kv_taps``) is appended back to the pages.
+
+Both decode one token over a dense cache in the ``decode_attention``
+kernel.  The engine runs on ``device`` ("cuda" by default; it never moves
+to the CPU on its own).
 """
 from __future__ import annotations
 
@@ -68,7 +80,7 @@ class EngineStats:
     migrate_seconds: float = 0.0         # modeled link-transfer time (import side)
     h2d_bytes: int = 0                   # host->device traffic (KV + step inputs)
     d2h_bytes: int = 0                   # device->host traffic (KV + sampled ids)
-    view_rebuilds: int = 0               # dense decode views (none on this path)
+    view_rebuilds: int = 0               # dense decode views built
 
     def as_dict(self) -> Dict[str, float]:
         return dict(self.__dict__)
@@ -154,13 +166,15 @@ class _Request:
 @dataclass
 class _Slot:
     req: _Request
-    seq_id: Optional[int] = None
+    seq_id: Optional[int] = None         # paged models
+    row: Any = None                      # dense rows: a B=1 cache dict
     length: int = 0                      # tokens whose KV is stored
     last_token: int = -1
     remaining: int = 0                   # samples still to produce
     generated: List[int] = field(default_factory=list)
     followers: List[RequestHandle] = field(default_factory=list)
     gen: Optional[torch.Generator] = None
+    view_ix: int = -1                    # row index in the current view
 
 
 class _Defer(Exception):
@@ -187,10 +201,6 @@ class InferenceEngine:
             raise RuntimeError(
                 "InferenceEngine: device 'cuda' requested but no CUDA device "
                 "is available; pass device='cpu' to run on the CPU")
-        if not paged_decode:
-            raise NotImplementedError(
-                "the dense-view decode path needs the decode_attention "
-                "kernel, not ported yet (ROADMAP Queue 2)")
         self.cfg = cfg
         # weights materialise on the device in load()
         self.model = build_model(cfg, device="meta")
@@ -211,6 +221,9 @@ class InferenceEngine:
         self.stats = EngineStats()
         self.warm_prefixes = RadixPrefixTree()  # guarded-by: self._cv | engine-loop
         self._paged_layout = self.model.paged_kv_layout()
+        # decode straight over the pages, or (dense rows, and the
+        # paged_decode=False reference arm) over a dense view
+        self._use_paged = bool(self._paged_layout) and paged_decode
         self.num_pages = num_pages or max(
             64, 2 * max_batch * -(-max_seq_len // page_size))
         self.kv: Optional[PagedKVCache] = None   # guarded-by: self._cv | engine-loop
@@ -218,6 +231,9 @@ class InferenceEngine:
         self._pending: "deque[_Request]" = deque()   # guarded-by: self._cv | engine-loop
         self._active: List[_Slot] = []               # guarded-by: self._cv | engine-loop
         self._warm: "OrderedDict[int, tuple]" = OrderedDict()  # guarded-by: self._cv | engine-loop
+        self._view: Optional[Dict[str, torch.Tensor]] = None  # guarded-by: self._cv | engine-loop
+        self._view_pad = 0               # guarded-by: self._cv | engine-loop
+        self._dirty = True               # guarded-by: self._cv | engine-loop
         self._loop_thread: Optional[threading.Thread] = None
         self._stepping = False           # guarded-by: self._cv
         self._shutdown = False           # guarded-by: self._cv
@@ -258,6 +274,8 @@ class InferenceEngine:
             self.kv = None
             self._warm.clear()
             self.warm_prefixes = RadixPrefixTree()
+            self._view = None
+            self._dirty = True
 
     @property
     def loaded(self) -> bool:
@@ -275,6 +293,12 @@ class InferenceEngine:
         admission pass picks the highest-priority waiting request (FIFO
         within a lane).
         """
+        if not self._paged_layout \
+                and len(prompt) + max_new_tokens > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds engine max_seq_len ({self.max_seq_len}); dense-row "
+                f"caches would wrap and corrupt state")
         with self._cv:
             if self._shutdown:
                 raise EngineError("engine is shut down")
@@ -353,6 +377,8 @@ class InferenceEngine:
                      ) -> int:
         """Longest warm-donor prefix of ``prompt`` resident here (tokens);
         0 when nothing useful is cached.  Runs in a step gap."""
+        if not self._paged_layout:
+            return 0                                 # dense rows share nothing
         prompt = tuple(int(t) for t in prompt)
         deadline = time.monotonic() + timeout
         with self._cv:
@@ -363,6 +389,8 @@ class InferenceEngine:
         """Export the warm KV prefix matching ``prompt`` as ``(tokens, k,
         v)`` (f32 numpy (L, T, Hkv, Dh)), or None when no warm donor covers
         MIN_SHARED_PREFIX tokens.  Runs in a step gap."""
+        if not self._paged_layout:
+            return None
         prompt = tuple(int(t) for t in prompt)
         deadline = time.monotonic() + timeout
         with self._cv:
@@ -382,7 +410,7 @@ class InferenceEngine:
         already resident or the pool has no headroom beyond the active
         batch's decode reservation."""
         tokens = tuple(int(t) for t in tokens)
-        if not self.enable_prefix_sharing \
+        if not self._paged_layout or not self.enable_prefix_sharing \
                 or len(tokens) < self.MIN_SHARED_PREFIX:
             return 0                                 # donor would be unusable
         deadline = time.monotonic() + timeout
@@ -496,13 +524,15 @@ class InferenceEngine:
                     self.kv.free_sequence(s.seq_id)
                 except Exception:
                     pass                        # pool corrupt > pool leaked
+        self._dirty = True
+        self._view = None
 
     def _step(self) -> None:
         """One scheduler iteration: admit, then one decode step."""
         self._grace_window()
         self._admit()
         if self._active:
-            self._decode_paged()
+            self._decode_once()
 
     def _grace_window(self) -> None:
         """Hold a FRESH batch's admission until ``admission_window``
@@ -560,6 +590,7 @@ class InferenceEngine:
             self.stats.admission_waves += 1
             self.stats.peak_batch = max(self.stats.peak_batch,
                                         len(self._active))
+            self._dirty = True
 
     @staticmethod
     def _duplicates(a: _Request, b: _Request) -> bool:
@@ -664,6 +695,15 @@ class InferenceEngine:
         S = len(req.prompt)
         slot = _Slot(req=req, remaining=req.max_new,
                      gen=self._request_gen(req))
+        if not self._paged_layout:
+            # dense row: the prefill state, grown to the engine's horizon
+            logits, cache = self.model.prefill(self._tokens([req.prompt]))
+            slot.row = self.model.extend_cache(cache, self.max_seq_len - S)
+            slot.length = S
+            self.stats.prefill_tokens += S
+            if req.max_new > 0:
+                self._emit_token(slot, logits[0:1])
+            return slot
         shareable = self.enable_prefix_sharing and not req.extra and S > 1
         kv = self._ensure_kv()
         donor, shared = None, 0
@@ -760,6 +800,83 @@ class InferenceEngine:
             b *= 2
         return b
 
+    def _rebuild_view(self) -> None:
+        """Re-materialize the dense decode batch after a composition change.
+
+        Paged models gather every active row from its pages on the device
+        (the pages stay authoritative); dense-row models restack their
+        per-request rows along ``cache_batch_axes``.  The batch is padded
+        to a power of two and, for paged models, time to ``_T_QUANTUM``;
+        padded rows compute garbage that is never sampled or written back.
+        """
+        slots = self._active
+        b_pad = self._round_b(len(slots))
+        self.stats.view_rebuilds += 1
+        if self._paged_layout:
+            t_view = self._round_t(max(s.length + s.remaining for s in slots))
+            layers, heads, dh = self._paged_layout
+            k_rows = torch.zeros((b_pad, layers, t_view, heads, dh),
+                                 dtype=self.model.dtype, device=self.device)
+            v_rows = torch.zeros_like(k_rows)
+            lengths = [0] * b_pad
+            for i, s in enumerate(slots):
+                kr, vr = self.kv.gather(s.seq_id)
+                k_rows[i, :, :s.length] = kr
+                v_rows[i, :, :s.length] = vr
+                lengths[i] = s.length
+            self._view = self.model.paged_cache_view(k_rows, v_rows, lengths)
+        else:
+            rows = self._dense_rows() + [None] * (b_pad - len(slots))
+            axes = self.model.cache_batch_axes(rows[0])
+            dummy = {k: torch.zeros_like(v) for k, v in rows[0].items()}
+            rows = [dummy if r is None else r for r in rows]
+            self._view = {key: torch.cat([r[key] for r in rows], dim=ax)
+                          for key, ax in axes.items()}
+        self._view_pad = b_pad
+        self._dirty = False
+
+    def _dense_rows(self) -> List[Dict[str, torch.Tensor]]:
+        """Per-slot cache rows; slots already in the current view are
+        sliced back out of it (they carry the decoded state)."""
+        out = []
+        for s in self._active:
+            if s.row is None:
+                s.row = self._slice_row(self._view, s.view_ix)
+            out.append(s.row)
+            s.row = None                    # ownership moves into the view
+        return out
+
+    def _slice_row(self, view, ix: int) -> Dict[str, torch.Tensor]:
+        axes = self.model.cache_batch_axes(view)
+        return {k: v.narrow(axes[k], ix, 1) for k, v in view.items()}
+
+    def _decode_once(self) -> None:
+        if self._use_paged:
+            self._decode_paged()
+            return
+        if self._dirty:
+            self._rebuild_view()
+            for i, s in enumerate(self._active):
+                s.view_ix = i
+        slots = self._active
+        b_real = len(slots)
+        tokens = np.zeros((self._view_pad,), np.int32)
+        tokens[:b_real] = [s.last_token for s in slots]
+        prev_lengths = [s.length for s in slots]
+        self.stats.h2d_bytes += tokens.nbytes
+        logits, self._view = self.model.decode_step(self._tokens(tokens),
+                                                    self._view)
+        if self._paged_layout:
+            # the step's new K/V back into the pages (identity slots: a
+            # full-attention view does not wrap)
+            k_taps, v_taps = self.model.decode_kv_taps(self._view,
+                                                       prev_lengths)
+            self.kv.append_tokens([s.seq_id for s in slots], k_taps, v_taps)
+        for s in slots:
+            s.length += 1
+        self.stats.decode_tokens += b_real
+        self._advance(logits)
+
     def _decode_paged(self) -> None:
         """One decode step straight over the device-resident page pool:
         upload O(batch) metadata (tokens, page tables, lengths), run the
@@ -821,6 +938,8 @@ class InferenceEngine:
         for s in finished:
             self._active.remove(s)
             self._retire(s)
+        if finished:
+            self._dirty = True
 
     def _retire(self, slot: _Slot) -> None:
         req = slot.req

@@ -206,6 +206,18 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         self.v[:, p, slot] = self._on_device(v_t)
         self.commit_append(seq_id)
 
+    def append_tokens(self, seq_ids: List[int], k_t, v_t) -> None:
+        """One decode step's KV for a whole batch: k_t/v_t (L, B, Hkv, Dh)
+        device tensors, row b for ``seq_ids[b]``.  Allocates or
+        copy-on-writes each trailing page, then lands every row in one
+        scatter (the engine's dense-view arm; the paged arm appends inside
+        the decode kernel)."""
+        pages, slots = self.prepare_appends(seq_ids)
+        pi, si = self._index(pages), self._index(slots)
+        self.k[:, pi, si] = self._on_device(k_t)
+        self.v[:, pi, si] = self._on_device(v_t)
+        self.commit_appends(seq_ids)
+
     def prepare_append(self, seq_id: int) -> Tuple[int, int]:
         """Host-metadata half of a one-token append: allocate the next
         page at a boundary, copy-on-write an aliased trailing page, and

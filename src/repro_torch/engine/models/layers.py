@@ -10,7 +10,8 @@ there:
   softmax run in f32;
 * attention has two implementations, selected by ``cfg.attention_impl``:
   ``"torch"`` (plain math, the counterpart of ``attention_xla``) and
-  ``"cuda"`` (the hand-written kernels under ``repro_torch.kernels``).
+  ``"cuda"`` (the hand-written kernels under ``repro_torch.kernels``:
+  flash prefill for a query block, flash-decode for one token).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -92,16 +94,21 @@ def attention_torch(q, k, v, *, q_positions, kv_positions, causal=True,
 
 def attention(q, k, v, *, q_positions, kv_positions, causal=True, window=0,
               impl: str = "cuda"):
-    """Dispatch between the plain math and the CUDA kernels."""
+    """Dispatch between the plain math and the CUDA kernels: under
+    ``"cuda"`` a one-token query goes to the decode kernel, longer ones to
+    the flash kernel."""
     if impl == "torch":
         return attention_torch(q, k, v, q_positions=q_positions,
                                kv_positions=kv_positions, causal=causal,
                                window=window)
     if impl == "cuda":
         if q.shape[1] == 1:
-            raise NotImplementedError(
-                "one-token attention over a dense cache needs the "
-                "decode_attention kernel, not ported yet (ROADMAP Queue 2)")
+            # one new token over a contiguous or ring cache (decode_step)
+            return da_ops.decode_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                q_positions=q_positions.to(torch.int32).contiguous(),
+                kv_positions=kv_positions.to(torch.int32).contiguous(),
+                window=window)
         return fa_ops.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(),
             q_positions=q_positions.to(torch.int32).contiguous(),
@@ -150,7 +157,7 @@ def attn_out(p, o):
 
 
 # ---------------------------------------------------------------------------
-# feed-forward (SwiGLU)
+# feed-forward (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 
 def ffn_init(gen, d_model, d_ff, dtype):

@@ -9,9 +9,10 @@ Weights are ``(in, out)`` as in the JAX package; the blocks are a
 ``ModuleList`` where the JAX package stacks them on a leading layer axis
 (``repro_torch.bridge`` splits that axis).  The module serves inference
 only: its parameters do not require grad.  Unlike the JAX functions,
-``prefill_with_cache`` and ``paged_decode_step`` write KV into the cache
-or pool they are given IN PLACE, which saves the whole-pool copy an
-immutable update would cost (about 1.9 GB at full width).
+``prefill_with_cache``, ``paged_decode_step`` and ``decode_step`` write
+KV into the cache or pool they are given IN PLACE, which saves the
+whole-pool copy an immutable update would cost (about 1.9 GB at full
+width).
 """
 from __future__ import annotations
 
@@ -217,11 +218,53 @@ class TransformerLM(nn.Module):
             last = x[torch.arange(B, device=dev), valid_len.long() - 1]
         return last @ self._head(), new_cache
 
-    def decode_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the dense-cache decode step needs the decode_attention kernel, "
-            "not ported yet (ROADMAP Queue 2); the engine decodes through "
-            "paged_decode_step")
+    # ------------------------------------------------ dense-cache decode step
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, cache: Cache,
+                    impl: Optional[str] = None) -> Tuple[torch.Tensor, Cache]:
+        """One autoregressive step over a dense cache ``{"k", "v": (L,B,T,
+        Hkv,Dh), "length": (B,)}``, the engine's dense-view arm
+        (``paged_decode=False``).
+
+        Each layer writes the new token's K/V at slot ``length`` IN PLACE
+        and attends over the slots holding positions ``<= length`` (under
+        ``impl="cuda"`` in the decode_attention kernel).  Returns (logits
+        (B,Vpad), a dict of the same tensors with ``length + 1``).
+        """
+        cfg = self.cfg
+        impl = impl or cfg.attention_impl
+        B = token.shape[0]
+        T = cache["k"].shape[2]
+        pos = cache["length"].to(torch.int32)
+        slot = torch.remainder(pos, T).long()
+        t_idx = torch.arange(T, dtype=torch.int32, device=token.device)[None]
+        kv_pos = torch.where(t_idx <= pos[:, None], t_idx, -1).to(
+            torch.int32).contiguous()
+        batch_ix = torch.arange(B, device=token.device)
+        x = self.embed[token][:, None, :]                    # (B,1,D)
+        for i, blk in enumerate(self.blocks):
+            q, k, v = self._qkv(blk, x, pos[:, None])
+            k_cache, v_cache = cache["k"][i], cache["v"][i]
+            k_cache[batch_ix, slot] = k[:, 0]
+            v_cache[batch_ix, slot] = v[:, 0]
+            o = L.attention(q, k_cache, v_cache, q_positions=pos[:, None],
+                            kv_positions=kv_pos, causal=True,
+                            window=cfg.swa_window, impl=impl)
+            x = self._finish_block(blk, x, o)
+        new_cache = dict(cache)
+        new_cache["length"] = pos + 1
+        x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
+        return x[:, -1] @ self._head(), new_cache
+
+    def decode_kv_taps(self, cache: Cache, slots) -> Tuple[torch.Tensor,
+                                                          torch.Tensor]:
+        """The K/V at per-row ``slots`` (the last decode step's token) as
+        device tensors ``(L, B, Hkv, Dh)``: the page-append payload that
+        mirrors one :meth:`decode_step`."""
+        ix = torch.as_tensor(slots, dtype=torch.long,
+                             device=cache["k"].device)
+        rows = torch.arange(ix.shape[0], device=ix.device)
+        return cache["k"][:, rows, ix], cache["v"][:, rows, ix]
 
     # ----------------------------------------------------- paged decode step
     @torch.no_grad()

@@ -121,6 +121,10 @@ def library() -> ctypes.CDLL:
             lib.paged_decode_attention_fwd.argtypes = \
                 [p] * 10 + [i] * 10 + [p]
             lib.paged_decode_attention_fwd.restype = i
+            lib.decode_attention_fwd.argtypes = [p] * 8 + [i] * 7 + [p]
+            lib.decode_attention_fwd.restype = i
+            lib.linear_scan_fwd.argtypes = [p] * 3 + [i] * 3 + [p]
+            lib.linear_scan_fwd.restype = i
             _lib = lib
         return _lib
 

@@ -23,7 +23,9 @@
 // the q tile is loaded once and each 64-key KV tile of head h // G is
 // staged in shared memory as f32 and reused by all 32 rows (a 16-row tile
 // measured slower: staging then outweighs the rows' compute); K rows are
-// padded by one float so the 32 lanes reading 32 keys hit 32 banks.
+// padded by one float so the 32 lanes reading 32 keys hit 32 banks.  At
+// Dh=256 (recurrentgemma-2b) the tiles take 164,352 bytes of shared memory,
+// under the 227 KB a block may have, so one block runs per SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -199,6 +201,9 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
                            causal, window, stream);
     case 128:
       return launch<T, 128>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv,
+                            causal, window, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv,
                             causal, window, stream);
     default:
       return cudaErrorInvalidValue;

@@ -7,42 +7,9 @@ plain version the CUDA kernel is held against.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
-from repro_torch.kernels.common import NEG_INF
-
-
-def decode_attention_ref(q, k, v, *, q_positions, kv_positions, window=0,
-                         return_lse=False):
-    """q: (B,H,Dh) one new token; k,v: (B,T,Hkv,Dh); kv_positions (B,T).
-
-    Returns out (B,H,Dh) in q's dtype; with ``return_lse`` also (m, l),
-    each (B,H) f32, the running max and sum of a log-sum-exp combine.
-    """
-    B, H, Dh = q.shape
-    Hkv = k.shape[2]
-    G = H // Hkv
-    qg = q.reshape(B, Hkv, G, Dh)
-    logits = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
-                          k.float()) / math.sqrt(Dh)
-    qp = q_positions.reshape(B)[:, None, None, None]
-    kp = kv_positions[:, None, None, :]
-    mask = (kp >= 0) & (kp <= qp)
-    if window:
-        mask = mask & (kp > qp - window)
-    logits = torch.where(mask, logits, NEG_INF)
-    m = logits.amax(dim=-1)                                  # (B,Hkv,G)
-    p = torch.exp(logits - m[..., None])
-    p = torch.where(mask, p, 0.0)
-    l = p.sum(dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
-    out = out / torch.where(l == 0.0, 1.0, l)[..., None]
-    out = out.reshape(B, H, Dh).to(q.dtype)
-    if return_lse:
-        return out, m.reshape(B, H), l.reshape(B, H)
-    return out
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths,

@@ -7,7 +7,8 @@ They import no JAX.  Tolerances: f32 2e-5 (the kernels sum in another
 order than the plain versions), bf16 3e-2 (the plain flash version
 rounds probs to bf16 before PV, the kernel keeps them in f32), and
 bitwise where the JAX suite pins it (single == blocked, fused ==
-scatter-then-attend).
+scatter-then-attend) or the kernel rounds exactly as its plain version
+(the RG-LRU scan: a multiply, then an add, per step).
 """
 import numpy as np
 import pytest
@@ -15,6 +16,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.common import NEG_INF  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref, lse_combine)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
@@ -22,6 +26,8 @@ from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     ops as pd_ops)
 from repro_torch.kernels.paged_decode_attention.ref import (  # noqa: E402
     paged_decode_attention_ref, scatter_append_ref)
+from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import linear_scan_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -43,7 +49,7 @@ def _tol(dtype):
 
 @pytest.mark.parametrize("B,Sq,Skv,H,Hkv,Dh", [
     (1, 32, 32, 2, 2, 8), (2, 64, 64, 4, 2, 16), (2, 16, 64, 8, 1, 32),
-    (1, 48, 80, 16, 8, 128)])
+    (1, 48, 80, 16, 8, 128), (1, 40, 72, 10, 1, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 24])
 def test_flash_kernel_matches_plain(dev, B, Sq, Skv, H, Hkv, Dh, dtype,
@@ -168,3 +174,72 @@ def test_fused_main_path_shape(dev):
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2,
                                rtol=3e-2)
     assert torch.equal(k_out, ks)
+
+
+def _ring_case(dev, B, T, H, Hkv, Dh, dtype, seed=3):
+    """A ring cache of T slots, position p in slot p % T: row 0 has
+    wrapped (its newest position is past T), row 1 has not (its tail
+    slots are empty, -1), and the last row has no valid key at all."""
+    rng = np.random.default_rng(seed)
+    q = _t(rng.normal(size=(B, H, Dh)), dtype, dev)
+    k = _t(rng.normal(size=(B, T, Hkv, Dh)), dtype, dev)
+    v = _t(rng.normal(size=(B, T, Hkv, Dh)), dtype, dev)
+    qp = rng.integers(0, 3 * T, size=(B,))
+    qp[0], qp[1] = 2 * T + 3, T // 2
+    slots = np.arange(T)[None, :]
+    kp = qp[:, None] - np.mod(qp[:, None] - slots, T)
+    kp = np.where(kp >= 0, kp, -1)
+    kp[-1] = -1                                # a row with no valid key
+    return (q, k, v, torch.as_tensor(qp, dtype=torch.int32).to(dev),
+            torch.as_tensor(kp, dtype=torch.int32).to(dev))
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,Dh", [
+    (3, 40, 2, 2, 32), (3, 100, 4, 2, 128), (4, 96, 10, 1, 256),
+    (3, 70, 16, 1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 17])
+def test_decode_kernel_matches_plain(dev, B, T, H, Hkv, Dh, dtype, window):
+    q, k, v, qp, kp = _ring_case(dev, B, T, H, Hkv, Dh, dtype)
+    n0 = da_ops.launches
+    out, m, l = da_ops.decode_attention(q, k, v, q_positions=qp,
+                                        kv_positions=kp, window=window,
+                                        return_lse=True)
+    torch.cuda.synchronize()
+    assert da_ops.launches == n0 + 1
+    ref, mr, lr = decode_attention_ref(q, k, v, q_positions=qp,
+                                       kv_positions=kp, window=window,
+                                       return_lse=True)
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(m, mr, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(l, lr, atol=2e-5, rtol=2e-5)
+    # the row with no valid key is pinned exactly
+    assert torch.all(out[-1] == 0)
+    assert torch.all(m[-1] == NEG_INF) and torch.all(l[-1] == 0)
+
+
+def test_decode_kernel_halves_combine_to_the_whole(dev):
+    q, k, v, qp, kp = _ring_case(dev, 3, 128, 10, 1, 256, torch.float32)
+    whole = da_ops.decode_attention(q, k, v, q_positions=qp,
+                                    kv_positions=kp, window=50)
+    parts = [da_ops.decode_attention(
+        q, k[:, lo:lo + 64].contiguous(), v[:, lo:lo + 64].contiguous(),
+        q_positions=qp, kv_positions=kp[:, lo:lo + 64].contiguous(),
+        window=50, return_lse=True) for lo in (0, 64)]
+    torch.testing.assert_close(lse_combine(parts), whole, atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 37, 70), (3, 5, 1), (1, 384, 2560)])
+def test_scan_kernel_equals_plain_bitwise(dev, B, S, D):
+    rng = np.random.default_rng(B * S + D)
+    a = torch.as_tensor(rng.uniform(0.5, 1.0, size=(B, S, D)),
+                        dtype=torch.float32).to(dev)
+    b = torch.as_tensor(rng.normal(size=(B, S, D)),
+                        dtype=torch.float32).to(dev)
+    n0 = lru_ops.launches
+    h = lru_ops.linear_scan(a, b)
+    torch.cuda.synchronize()
+    assert lru_ops.launches == n0 + 1
+    assert torch.equal(h, linear_scan_ref(a, b))

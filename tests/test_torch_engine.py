@@ -4,9 +4,12 @@ Both engines serve ``get_smoke("qwen3-1.7b")`` in float32 with the same
 weights (the JAX init, bridged).  At temperature 0 the port must emit the
 JAX engine's tokens exactly, through fresh prompts, warm re-runs that
 alias a donor's partial page (copy-on-write), coalesced duplicates and a
-request admitted mid-decode, with the same sharing counters.  Sampled
-(temperature > 0) tokens differ from JAX's by design (torch generators,
-not threefry), so only their determinism is checked.
+request admitted mid-decode, with the same sharing counters, both on the
+paged decode path and on the dense-view arm (``paged_decode=False``).
+The hybrid ``get_smoke("recurrentgemma-2b")`` is served through the
+dense-row path alike.  Sampled (temperature > 0) tokens differ from JAX's
+by design (torch generators, not threefry), so only their determinism is
+checked.
 """
 import time
 
@@ -215,3 +218,86 @@ def test_sampling_is_deterministic_per_request(weights):
     assert outs[0] == outs[1]
     assert outs[0][0] == outs[0][3]          # duplicates coalesce
     assert all(0 <= t < 256 for row in outs[0] for t in row)
+
+
+# ------------------------------------------------- dense view (qwen3 A/B)
+
+@pytest.fixture(scope="module")
+def jax_dense_run(weights):
+    eng = JaxEngine(jax_smoke("qwen3-1.7b").replace(dtype="float32"),
+                    seed=0, paged_decode=False)
+    eng.params = weights[0].params
+    try:
+        return _scenario(eng)
+    finally:
+        eng.shutdown()
+
+
+def test_dense_view_arm_gives_the_paged_and_the_jax_tokens(weights,
+                                                           jax_run,
+                                                           jax_dense_run):
+    eng = _torch_engine(weights, paged_decode=False)
+    try:
+        out = _scenario(eng)
+        assert out["fresh"] == jax_dense_run["fresh"] == jax_run["fresh"]
+        assert out["warm"] == jax_dense_run["warm"]
+        assert out["mid"] == jax_dense_run["mid"] == jax_run["mid"]
+        assert out["stats"] == jax_dense_run["stats"]
+        assert eng.stats.view_rebuilds >= 2
+        eng.release_warm()
+        assert eng.kv.pages_in_use == 0
+    finally:
+        eng.shutdown()
+
+
+# ------------------------------------------------- dense rows (hybrid)
+
+# prompt lengths at or under the smoke window (16) or a multiple of it,
+# where the JAX reference places its ring correctly
+HYB_PROMPTS = [list(range(10, 26)), list(range(40, 45)),
+               list(range(60, 92)), list(range(10, 26))]
+HYB_LATE = list(range(100, 109))
+
+
+def _hybrid_scenario(eng):
+    handles = [eng.submit(p, max_new_tokens=6) for p in HYB_PROMPTS]
+    _wait(lambda: eng.stats.decode_tokens >= 1)
+    handles.append(eng.submit(HYB_LATE, max_new_tokens=5))
+    return ([h.result() for h in handles],
+            eng.stats.coalesced_requests, eng.kv)
+
+
+@pytest.fixture(scope="module")
+def hybrid_weights():
+    jcfg = jax_smoke("recurrentgemma-2b").replace(dtype="float32")
+    eng = JaxEngine(jcfg, seed=0)
+    eng.load()
+    cfg = get_smoke("recurrentgemma-2b").replace(dtype="float32")
+    return eng, cfg, params_from_jax(jax.tree.map(np.asarray, eng.params),
+                                     cfg)
+
+
+def test_hybrid_dense_rows_give_the_jax_tokens(hybrid_weights):
+    jeng, cfg, sd = hybrid_weights
+    try:
+        j_out, j_coalesced, j_kv = _hybrid_scenario(jeng)
+    finally:
+        jeng.shutdown()
+    eng = InferenceEngine(cfg, seed=0, device="cpu")
+    eng.load(sd)
+    try:
+        out, coalesced, kv = _hybrid_scenario(eng)
+        assert out == j_out
+        assert out[0] == out[3]                    # the duplicate
+        assert coalesced == j_coalesced == 1
+        assert kv is None and j_kv is None         # no pages on this path
+        assert eng.stats.view_rebuilds >= 2
+        assert eng.probe_prefix(HYB_PROMPTS[0]) == 0
+        assert eng.export_prefix(HYB_PROMPTS[0]) is None
+        assert eng.import_prefix(HYB_PROMPTS[0], None, None) == 0
+        with pytest.raises(ValueError, match="max_seq_len"):
+            eng.submit(list(range(500)), max_new_tokens=16)
+        eng.unload()
+        assert eng._view is None and not eng.loaded
+    finally:
+        eng.shutdown()

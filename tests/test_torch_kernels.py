@@ -16,6 +16,10 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import common as jcommon  # noqa: E402
+from repro.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention as j_decode)
+from repro.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref as j_decode_ref, lse_combine as j_lse_combine)
 from repro.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention as j_flash)
 from repro.kernels.flash_attention.ref import (  # noqa: E402
@@ -26,11 +30,19 @@ from repro.kernels.paged_decode_attention.ops import (  # noqa: E402
 from repro.kernels.paged_decode_attention.ref import (  # noqa: E402
     fused_paged_decode_attention_ref as j_fused_ref,
     paged_decode_attention_ref as j_paged_ref)
+from repro.kernels.rglru_scan.ops import (  # noqa: E402
+    linear_scan as j_linear_scan)
+from repro.kernels.rglru_scan.ref import (  # noqa: E402
+    linear_scan_ref as j_linear_scan_ref)
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.common import NEG_INF  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import lse_combine  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     ops as pd_ops)
+from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import linear_scan_ref  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -125,7 +137,16 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
     kn, vn = _new_kv(3, 2, 16, "float32")
     pd_ops.fused_paged_decode_attention(qd[1], kpool[1], vpool[1], pt[1],
                                         lens[1], kn[1], vn[1])
+    qr, kr, vr, qpr, kpr = _ring_inputs(3, 16, 2, 1, 32, "float32")
+    n_da, n_lru = da_ops.launches, lru_ops.launches
+    da_ops.decode_attention(qr[1], kr[1], vr[1], q_positions=qpr[1],
+                            kv_positions=kpr[1])
+    lru_ops.linear_scan(torch.ones(1, 3, 4), torch.ones(1, 3, 4))
     assert (fa_ops.launches, pd_ops.launches) == (n_fa, n_pd)
+    assert (da_ops.launches, lru_ops.launches) == (n_da, n_lru)
+    with pytest.raises(TypeError):
+        lru_ops.linear_scan(torch.ones(1, 3, 4, dtype=torch.bfloat16),
+                            torch.ones(1, 3, 4, dtype=torch.bfloat16))
     with pytest.raises(TypeError):
         fa_ops.flash_attention(q[1], k[1], v[1], q_positions=qp[1].long(),
                                kv_positions=kp[1])
@@ -254,6 +275,93 @@ def test_fused_padding_row_writes_nothing_and_is_pinned():
         assert not torch.any(v_pool[pg] == -1e6)
     assert torch.all(out[-1] == 0)
     assert torch.all(m[-1] == np.float32(NEG_INF)) and torch.all(l[-1] == 0)
+
+
+# ------------------------------------------------ decode over a ring cache
+
+def _ring_inputs(B, T, H, Hkv, Dh, dtype, seed=5):
+    """A ring cache of T slots, position p in slot p % T: row 0 has
+    wrapped, row 1 has not (its tail slots are empty, -1), and the last
+    row has no valid key at all."""
+    rng = np.random.default_rng(seed)
+    q = _pair(rng.normal(size=(B, H, Dh)), dtype)
+    k = _pair(rng.normal(size=(B, T, Hkv, Dh)), dtype)
+    v = _pair(rng.normal(size=(B, T, Hkv, Dh)), dtype)
+    qp = rng.integers(0, 3 * T, size=(B,))
+    qp[0], qp[1] = 2 * T + 3, T // 2
+    slots = np.arange(T)[None, :]
+    kp = qp[:, None] - np.mod(qp[:, None] - slots, T)
+    kp = np.where(kp >= 0, kp, -1)
+    kp[-1] = -1
+    return q, k, v, _ints(qp), _ints(kp)
+
+
+@pytest.mark.parametrize("H,Hkv,Dh", [(2, 2, 32), (4, 2, 32), (10, 1, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 7])
+def test_decode_ring_sweep_matches_jax_ref(H, Hkv, Dh, dtype, window):
+    q, k, v, qp, kp = _ring_inputs(3, 24, H, Hkv, Dh, dtype)
+    out, m, l = da_ops.decode_attention(
+        q[1], k[1], v[1], q_positions=qp[1], kv_positions=kp[1],
+        window=window, return_lse=True)
+    ref, mr, lr = j_decode_ref(q[0], k[0], v[0], q_positions=qp[0],
+                               kv_positions=kp[0], window=window,
+                               return_lse=True)
+    assert out.dtype == q[1].dtype
+    _close(out, ref, _tol(dtype))
+    _close(m, mr, 2e-5)
+    _close(l, lr, 2e-5)
+    assert torch.all(out[-1] == 0)                 # no valid key: pinned
+    assert torch.all(m[-1] == np.float32(NEG_INF)) and torch.all(l[-1] == 0)
+
+
+def test_decode_matches_pallas_interpret_one_token_rank4():
+    q, k, v, qp, kp = _ring_inputs(3, 32, 10, 1, 256, "float32", seed=9)
+    out = da_ops.decode_attention(q[1][:, None], k[1], v[1],
+                                  q_positions=qp[1][:, None],
+                                  kv_positions=kp[1], window=20)
+    pallas = j_decode(q[0][:, None], k[0], v[0], q_positions=qp[0][:, None],
+                      kv_positions=kp[0], window=20, block_t=16,
+                      interpret=True)
+    assert tuple(out.shape) == (3, 1, 10, 256)
+    _close(out, pallas, 2e-5)
+
+
+def test_lse_combine_of_split_halves_equals_the_whole():
+    q, k, v, qp, kp = _ring_inputs(3, 32, 4, 2, 32, "float32", seed=13)
+    whole = da_ops.decode_attention(q[1], k[1], v[1], q_positions=qp[1],
+                                    kv_positions=kp[1], window=11)
+    t_parts, j_parts = [], []
+    for lo in (0, 16):
+        sl = slice(lo, lo + 16)
+        t_parts.append(da_ops.decode_attention(
+            q[1], k[1][:, sl].contiguous(), v[1][:, sl].contiguous(),
+            q_positions=qp[1], kv_positions=kp[1][:, sl].contiguous(),
+            window=11, return_lse=True))
+        j_parts.append(j_decode_ref(q[0], k[0][:, sl], v[0][:, sl],
+                                    q_positions=qp[0],
+                                    kv_positions=kp[0][:, sl], window=11,
+                                    return_lse=True))
+    merged = lse_combine(t_parts)
+    _close(merged, whole.numpy(), 2e-5)
+    _close(merged, j_lse_combine(j_parts), 2e-5)
+
+
+# ------------------------------------------------------ RG-LRU scan
+
+@pytest.mark.parametrize("B,S,D", [(2, 37, 70), (1, 19, 600), (3, 1, 5)])
+def test_linear_scan_matches_jax_ref_and_pallas_interpret(B, S, D):
+    rng = np.random.default_rng(S * D)
+    a = rng.uniform(0.5, 1.0, size=(B, S, D)).astype(np.float32)
+    b = rng.normal(size=(B, S, D)).astype(np.float32)
+    out = lru_ops.linear_scan(torch.from_numpy(a), torch.from_numpy(b))
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    _close(out, j_linear_scan_ref(ja, jb), 1e-5)
+    _close(out, j_linear_scan(ja, jb, interpret=True), 1e-5)
+    h0 = rng.normal(size=(B, D)).astype(np.float32)
+    _close(linear_scan_ref(torch.from_numpy(a), torch.from_numpy(b),
+                           torch.from_numpy(h0)),
+           j_linear_scan_ref(ja, jb, jnp.asarray(h0)), 1e-5)
 
 
 # ------------------------------------------------------ online softmax

@@ -91,3 +91,24 @@ def test_out_of_pages_and_bad_imports_raise_alike():
             c.add_sequence(k, v)
         with pytest.raises(ValueError):
             c.import_sequence(k[:, :, :1], v[:, :, :1])
+
+
+def test_batched_append_tokens_matches_jax():
+    """The dense-view arm's per-step append: one row at a page boundary
+    (a fresh page), one with an aliased partial tail (copy-on-write), one
+    mid-page."""
+    rng = np.random.default_rng(2)
+    j, t = _both()
+    k0, v0 = _kv(rng, 16)                       # two full pages
+    k1, v1 = _kv(rng, 5)
+    steps = [_kv(rng, 3) for _ in range(3)]     # (L, 3, H, D) per step
+    for c in (j, t):
+        a = c.add_sequence(k0, v0)
+        b = c.add_sequence(k1, v1)
+        d = c.add_sequence(shared_from=b, shared_len=5)
+        for k_t, v_t in steps:
+            kt, vt = (k_t, v_t) if c is j else (torch.from_numpy(k_t),
+                                                torch.from_numpy(v_t))
+            c.append_tokens([a, b, d], kt, vt)
+    _same_state(j, t)
+    assert [t.sequences[s].length for s in (0, 1, 2)] == [19, 8, 8]

@@ -114,3 +114,26 @@ def test_ffn_apply(dtype):
     x = _pair((2, 5, d), dtype)
     _close(TL.ffn_apply({n: a[1] for n, a in p.items()}, x[1]),
            JL.ffn_apply({n: a[0] for n, a in p.items()}, x[0]), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl,jimpl", [("torch", "xla"),
+                                        ("cuda", "pallas_interpret")])
+def test_one_token_attention_over_a_ring(dtype, impl, jimpl):
+    """Sq == 1 under "cuda" is the decode kernel's path (its plain version
+    on CPU tensors), the Pallas decode kernel's under pallas_interpret."""
+    B, T, H, Hkv, Dh = 3, 16, 4, 1, 32
+    q = _pair((B, 1, H, Dh), dtype)
+    k = _pair((B, T, Hkv, Dh), dtype)
+    v = _pair((B, T, Hkv, Dh), dtype)
+    qp = np.asarray([[37], [5], [16]], np.int32)
+    slots = np.arange(T)[None, :]
+    kp = qp - np.mod(qp - slots, T)
+    kp = np.where(kp >= 0, kp, -1).astype(np.int32)
+    out = TL.attention(q[1], k[1], v[1], q_positions=torch.from_numpy(qp),
+                       kv_positions=torch.from_numpy(kp), window=10,
+                       impl=impl)
+    ref = JL.attention(q[0], k[0], v[0], q_positions=jnp.asarray(qp),
+                       kv_positions=jnp.asarray(kp), window=10, impl=jimpl)
+    assert tuple(out.shape) == (B, 1, H, Dh)
+    _close(out, ref, dtype)

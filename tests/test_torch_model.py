@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro.configs import get_smoke as jax_smoke  # noqa: E402
 from repro.engine.kvcache import PagedKVCache as JaxKV  # noqa: E402
@@ -143,3 +144,43 @@ def test_prefill_chunked_prefill_and_paged_step_match_jax(models, impl,
     written = torch.zeros_like(tk, dtype=torch.bool)
     written[:, pt[0, S // 8], S % 8] = True
     assert torch.equal(tk[~written], k_before[~written])
+
+
+@pytest.mark.parametrize("impl,jimpl", [("torch", "xla"),
+                                        ("cuda", "pallas_interpret")])
+def test_dense_decode_step_and_kv_taps_match_jax(models, impl, jimpl):
+    """The engine's dense-view arm: decode steps over a dense cache grown
+    past the prompt, batched with a shorter row, and the K/V taps each
+    step appends back to the pages."""
+    dtype, jm, jp, tm = models
+    tol = TOL[dtype]
+    toks = np.arange(10, 23, dtype=np.int32)[None]           # 13 tokens
+    short = np.arange(40, 47, dtype=np.int32)[None]          # 7 tokens
+    jrows, k_rows, v_rows, lens = [], [], [], []
+    for prompt in (toks, short):
+        _, jc = jm.prefill(jp, jnp.asarray(prompt), impl=jimpl)
+        _, tc = tm.prefill(torch.from_numpy(prompt), impl=impl)
+        S = prompt.shape[1]
+        jrows.append(jm.extend_cache(jc, 32 - S))
+        # the engine's view: page rows (B, L, T, Hkv, Dh), zero past length
+        k_rows.append(F.pad(tc["k"][:, 0], (0, 0, 0, 0, 0, 32 - S)))
+        v_rows.append(F.pad(tc["v"][:, 0], (0, 0, 0, 0, 0, 32 - S)))
+        lens.append(S)
+    jc = {k: jnp.concatenate([c[k] for c in jrows],
+                             axis=jm.cache_batch_axes(jrows[0])[k])
+          for k in jrows[0]}
+    tc = tm.paged_cache_view(torch.stack(k_rows), torch.stack(v_rows), lens)
+    assert tuple(tc["k"].shape) == jc["k"].shape
+    _close(tc["k"], jc["k"], tol)
+    tok = np.asarray([42, 7], np.int32)
+    for _ in range(2):
+        lengths = np.asarray(jc["length"])
+        jl, jc = jm.decode_step(jp, jnp.asarray(tok), jc, impl=jimpl)
+        tl, tc = tm.decode_step(torch.from_numpy(tok), tc, impl=impl)
+        _close(tl, jl, tol)
+        jk, jv = jm.decode_kv_taps(jc, lengths)
+        tk, tv = tm.decode_kv_taps(tc, lengths.tolist())
+        _close(tk, jk, tol)
+        _close(tv, jv, tol)
+        tok = np.asarray(torch.argmax(tl, -1), np.int32)
+    assert tc["length"].tolist() == [15, 9]

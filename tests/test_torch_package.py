@@ -46,6 +46,13 @@ def _env():
 
 
 def test_every_module_imports_without_jax():
+    mods = _modules()
+    for m in ("repro_torch.configs.recurrentgemma_2b",
+              "repro_torch.engine.models.rglru",
+              "repro_torch.engine.models.xlstm",
+              "repro_torch.kernels.decode_attention.ops",
+              "repro_torch.kernels.rglru_scan.ops"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
@@ -60,7 +67,10 @@ def test_every_module_imports_without_jax():
 
 def test_no_source_imports_jax_or_the_jax_package():
     offenders = []
-    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    sources = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    assert PKG / "configs" / "recurrentgemma_2b.py" in sources
+    assert PKG / "engine" / "models" / "rglru.py" in sources
+    for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -82,15 +92,26 @@ def test_engine_defaults_to_cuda_and_raises_without_a_card():
 
 
 def test_registry_holds_the_ported_config_only():
-    from repro.configs.qwen3_1_7b import CONFIG as JAX_CONFIG
-    cfg = get_config("qwen3-1.7b")
-    for f in ("num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
-              "vocab_size", "head_dim", "rope_theta", "qk_norm",
-              "tie_embeddings", "norm_eps", "dtype"):
-        assert getattr(cfg, f) == getattr(JAX_CONFIG, f), f
-    assert cfg.padded_vocab == JAX_CONFIG.padded_vocab == 152064
-    assert cfg.param_count() == JAX_CONFIG.param_count()
-    assert cfg.attention_impl == "cuda"
+    """The registry holds qwen3-1.7b and recurrentgemma-2b, each equal to
+    the JAX package's config (full and smoke), and nothing else."""
+    from repro.configs import get_config as jax_config
+    from repro.configs import get_smoke as jax_smoke
+    from repro_torch.configs import ARCH_IDS
+    assert ARCH_IDS == ("qwen3-1.7b", "recurrentgemma-2b")
+    fields = ("name", "family", "num_layers", "d_model", "num_heads",
+              "num_kv_heads", "d_ff", "vocab_size", "head_dim",
+              "rope_theta", "qk_norm", "tie_embeddings", "norm_eps",
+              "dtype", "block_pattern", "local_attn_window", "lru_width",
+              "conv1d_width", "swa_window")
+    for arch, vocab in (("qwen3-1.7b", 152064),
+                        ("recurrentgemma-2b", 256000)):
+        for mine, ref in ((get_config(arch), jax_config(arch)),
+                          (get_smoke(arch), jax_smoke(arch))):
+            for f in fields:
+                assert getattr(mine, f) == getattr(ref, f), (arch, f)
+            assert mine.param_count() == ref.param_count()
+            assert mine.attention_impl == "cuda"
+        assert get_config(arch).padded_vocab == vocab
     with pytest.raises(KeyError):
         get_config("llama3.2-3b")
 
