@@ -14,22 +14,31 @@ each:
    card (hostile paged layout, padding-row poison, single == blocked and
    fused == scatter-then-attend bitwise, the flash sweep up to Dh=256,
    decode attention over wrapped rings with empty slots, a window and a
-   row with no valid key, the RG-LRU scan bitwise, and the main paths'
-   full-width shapes with kernel / plain / library times and the card's
-   lower bound);
-3. engine: full-width qwen3-1.7b (random weights from a seed) served by
+   row with no valid key, the RG-LRU scan bitwise, the shared-prefix
+   kernel and op over prime and long prefixes with ragged suffixes, and
+   the main paths' full-width shapes with kernel / plain / library times
+   and the card's lower bound);
+3. shared prefix: the Hydragen op through its entry point at qwen3-1.7b's
+   attention width, B=8 and B=32 rows on one 2048-token prefix; both of
+   its kernels must launch, and in f32 it must equal today's engine route
+   (the paged kernel over shared prefix pages), which is timed beside it;
+4. engine: full-width qwen3-1.7b (random weights from a seed) served by
    the continuous-batching ``InferenceEngine``: prefix sharing with a
    copy-on-write partial page, a coalesced duplicate, a request admitted
    mid-decode; the kernels' launch counters must move and the plain
-   versions must not run; the CUDA and plain decode steps must agree;
-   then the same model on the dense-view arm (``paged_decode=False``),
-   which decodes in the decode_attention kernel;
-4. hybrid: full-width recurrentgemma-2b served through the engine's
+   versions must not run; the CUDA and plain decode steps must agree, in
+   bf16 and, on a float32 copy of the weights, to f32 rounding; then the
+   same model on the dense-view arm (``paged_decode=False``), which
+   decodes in the decode_attention kernel;
+5. hybrid: full-width recurrentgemma-2b served through the engine's
    dense-row path (flash prefill at Dh=256, the RG-LRU scan, decode
-   attention over the ring), its step profile and parity, and a prompt
-   past the 2048-token window held against the teacher-forced forward;
-5. a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and the
-   last line ``{"ok": true, "device": {...}}``.
+   attention over the ring), its step profile and parity, batch
+   invariance in bf16 and (asserted) on a float32 copy of the weights, and
+   a prompt past the 2048-token window held against the teacher-forced
+   forward;
+6. the wall time, a ``{"kernels": [...]}`` line, the card's
+   ``nvidia-smi`` line, and the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Without a CUDA device it exits 2 before doing anything.
@@ -310,6 +319,275 @@ def kernels_flash_hybrid(torch, F, t, rng, fa_ops, flash_attention_ref):
         bound_by=b_by)
 
 
+def prefix_suffix_positions(np, P, lens, T):
+    """q_positions (B,) and suffix_positions (B,T) of rows whose suffix
+    holds ``lens[b]`` tokens at positions P.. after the shared prefix."""
+    sp = np.where(np.arange(T)[None, :] < lens[:, None],
+                  P + np.arange(T)[None, :], -1).astype(np.int32)
+    return (P + lens - 1).astype(np.int32), sp
+
+
+# The shared-prefix limits, set from the readings on an H100 (PERF.md
+# section 6).  The kernel and its plain version both compute in f32 from
+# the same inputs in either dtype, so (acc, m, l) keep f32's limit in
+# bf16: the sweep read at most 2.9e-5 in acc and 2.7e-4 in l, where they
+# are large, and 5.7e-6 in acc at qwen3's width.  The op's bf16 output
+# differs only where its f32 value rounds to bf16 the other way (read at
+# most 2.4e-4): 2e-3 plus one bf16 ulp (8e-3 relative).
+KERNEL_TOL = {"atol": 2e-5, "rtol": 2e-5}
+
+
+def op_tol(torch, dtype):
+    if dtype == torch.float32:
+        return {"atol": 2e-5, "rtol": 2e-5}
+    return {"atol": 2e-3, "rtol": 8e-3}
+
+
+def kernels_shared_prefix(torch, t, rng, sp_ops, prefix_attention_ref,
+                          shared_prefix_attention_ref, NEG_INF):
+    """The prefix kernel and the op against their plain versions on the
+    card: f32/bf16, three head layouts, P prime, odd and long, ragged
+    suffixes, a row whose suffix is all -1 and a query before the
+    prefix's end (the op's contract: the prefix stays visible)."""
+    import numpy as np
+    dev = torch.device("cuda")
+    errs = {}
+    B, T = 5, 70
+    for (H, Hkv, Dh) in ((16, 8, 128), (10, 1, 256), (4, 2, 64)):
+        for P in (37, 131, 2048):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = t(rng.normal(size=(B, H, Dh)), dtype)
+                pk = t(rng.normal(size=(P, Hkv, Dh)), dtype)
+                pv = t(rng.normal(size=(P, Hkv, Dh)), dtype)
+                sk = t(rng.normal(size=(B, T, Hkv, Dh)), dtype)
+                sv = t(rng.normal(size=(B, T, Hkv, Dh)), dtype)
+                lens = rng.integers(1, T + 1, size=(B,))
+                lens[0], lens[-2] = T, 0           # full, all -1
+                qp, sp = prefix_suffix_positions(np, P, lens, T)
+                qp[-1] = P // 3                    # before the prefix end
+                qp_d = torch.as_tensor(qp).to(dev)
+                sp_d = torch.as_tensor(sp).to(dev)
+                pos = torch.arange(P, dtype=torch.int32, device=dev)
+                got = sp_ops.prefix_attention(q, pk, pv, pos)
+                want = prefix_attention_ref(q, pk, pv, pos)
+                for name, a, b in zip(("acc", "m", "l"), got, want):
+                    torch.testing.assert_close(a, b, **KERNEL_TOL)
+                    errs[name] = max(errs.get(name, 0.0),
+                                     (a - b).abs().max().item())
+                out = sp_ops.shared_prefix_attention(
+                    q, pk, pv, sk, sv, q_positions=qp_d,
+                    suffix_positions=sp_d)
+                ref = shared_prefix_attention_ref(
+                    q, pk, pv, sk, sv, q_positions=qp_d,
+                    suffix_positions=sp_d)
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           **op_tol(torch, dtype))
+                errs["op"] = max(errs.get("op", 0.0), (
+                    out.float() - ref.float()).abs().max().item())
+        # a prefix with no valid key pins every row
+        acc, m, l = sp_ops.prefix_attention(
+            q, pk, pv, torch.full((P,), -1, dtype=torch.int32, device=dev))
+        assert torch.all(acc == 0) and torch.all(m == NEG_INF) \
+            and torch.all(l == 0), "empty prefix not pinned"
+    torch.cuda.synchronize()
+    log("kernels.shared_prefix",
+        sweep="(H,Hkv,Dh)=(16,8,128),(10,1,256),(4,2,64) x P=37,131,2048 x "
+        "f32/bf16", cases="ragged suffixes, an all -1 suffix row, "
+        "q_position<P-1, empty prefix pinned",
+        tolerance="(acc,m,l) 2e-5 atol+rtol; op f32 2e-5, bf16 2e-3 atol "
+        "+ 8e-3 rtol",
+        max_abs_err_acc=f"{errs['acc']:.3e}", max_abs_err_m=f"{errs['m']:.3e}",
+        max_abs_err_l=f"{errs['l']:.3e}", max_abs_err_op=f"{errs['op']:.3e}")
+
+
+def shared_prefix_full(torch, F, np, sp_ops, da_ops, pd_ops,
+                       prefix_attention_ref, shared_prefix_attention_ref):
+    """The slice's path, the op through its public entry point at
+    qwen3-1.7b's attention width (H=16, Hkv=8, Dh=128), bf16: B=8 and B=32
+    rows share one 2048-token prefix, each with a 512-slot suffix of 64 to
+    512 valid tokens.  Eight layers' inputs are cycled (past the 50 MB
+    L2).  Beside it, today's engine route: the paged decode kernel over
+    pages (page 8) where every row's page table starts with the same
+    prefix pages.  Returns the prefix kernel's kernels entry (B=8)."""
+    dev = torch.device("cuda")
+    H, Hkv, Dh, P, T, ps, NL = 16, 8, 128, 2048, 512, 8, 8
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lens_rng = np.random.default_rng(13)
+    entry = None
+    for B in (8, 32):
+        # one pool per layer holds the prefix pages, then each row's own
+        # suffix pages; the op reads the same bytes as contiguous views
+        n_pages = (P + B * T) // ps
+        pools = torch.randn((2, NL, n_pages, ps, Hkv, Dh), generator=gen,
+                            device=dev, dtype=torch.bfloat16)
+        pk = [pools[0, i, :P // ps].view(P, Hkv, Dh) for i in range(NL)]
+        pv = [pools[1, i, :P // ps].view(P, Hkv, Dh) for i in range(NL)]
+        sk = [pools[0, i, P // ps:].view(B, T, Hkv, Dh) for i in range(NL)]
+        sv = [pools[1, i, P // ps:].view(B, T, Hkv, Dh) for i in range(NL)]
+        q = torch.randn((B, H, Dh), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        lens = lens_rng.integers(64, T + 1, size=(B,))
+        qp, sp = prefix_suffix_positions(np, P, lens, T)
+        qp_d = torch.as_tensor(qp).to(dev)
+        sp_d = torch.as_tensor(sp).to(dev)
+        pos = torch.arange(P, dtype=torch.int32, device=dev)
+        pt = np.concatenate([np.broadcast_to(np.arange(P // ps), (B, P // ps)),
+                             P // ps + np.arange(B * T // ps).reshape(B, -1)],
+                            axis=1).astype(np.int32)
+        pt_d = torch.as_tensor(pt).to(dev)
+
+        # the main path: one call of the op; both kernels must launch
+        sp_ops.launches = 0
+        da_ops.launches = 0
+        out = sp_ops.shared_prefix_attention(
+            q, pk[0], pv[0], sk[0], sv[0], q_positions=qp_d,
+            suffix_positions=sp_d)
+        torch.cuda.synchronize()
+        n_sp, n_da = sp_ops.launches, da_ops.launches
+        assert (n_sp, n_da) == (1, 1), (n_sp, n_da)
+        assert out.shape == (B, H, Dh) and bool(torch.isfinite(out).all())
+        ref = shared_prefix_attention_ref(q, pk[0], pv[0], sk[0], sv[0],
+                                          q_positions=qp_d,
+                                          suffix_positions=sp_d)
+        op_err = (out.float() - ref.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **op_tol(torch, torch.bfloat16))
+        got = sp_ops.prefix_attention(q, pk[0], pv[0], pos)
+        want = prefix_attention_ref(q, pk[0], pv[0], pos)
+        k_errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **KERNEL_TOL)
+
+        # the same data in f32: the op against the paged route
+        p32 = pools[:, 0].float()
+        out32 = sp_ops.shared_prefix_attention(
+            q.float(), p32[0, :P // ps].view(P, Hkv, Dh),
+            p32[1, :P // ps].view(P, Hkv, Dh),
+            p32[0, P // ps:].view(B, T, Hkv, Dh),
+            p32[1, P // ps:].view(B, T, Hkv, Dh), q_positions=qp_d,
+            suffix_positions=sp_d)
+        paged32 = pd_ops.paged_decode_attention(q.float(), p32[0], p32[1],
+                                                pt_d, qp_d, variant="blocked")
+        paged_diff = (out32 - paged32).abs().max().item()
+        assert paged_diff <= 2e-5, f"op vs paged route in f32: {paged_diff}"
+        del p32, out32, paged32
+
+        layer = [0]
+
+        def cyc():
+            layer[0] = (layer[0] + 1) % NL
+            return layer[0]
+
+        def prefix_run():
+            i = cyc()
+            return sp_ops.prefix_attention(q, pk[i], pv[i], pos)
+
+        def prefix_plain():
+            i = cyc()
+            return prefix_attention_ref(q, pk[i], pv[i], pos)
+
+        def op_run():
+            i = cyc()
+            return sp_ops.shared_prefix_attention(
+                q, pk[i], pv[i], sk[i], sv[i], q_positions=qp_d,
+                suffix_positions=sp_d)
+
+        def op_plain():
+            i = cyc()
+            return shared_prefix_attention_ref(
+                q, pk[i], pv[i], sk[i], sv[i], q_positions=qp_d,
+                suffix_positions=sp_d)
+
+        times = {"prefix_kernel": time_ms(torch, prefix_run, iters=48),
+                 "op": time_ms(torch, op_run, iters=48),
+                 "prefix_plain": time_ms(torch, prefix_plain, iters=8),
+                 "op_plain": time_ms(torch, op_plain, iters=8)}
+        # back-to-back calls can be bound by the wrappers' host time; the
+        # profiler's kernel intervals give the card's own time per call
+        device_ms, top = {}, {}
+        for what, fn in (("prefix_kernel", prefix_run), ("op", op_run)):
+            _, device_ms[what], top[what] = profile_calls(torch, fn, 16)
+        # the library yardstick: SDPA over the prefix broadcast to every
+        # row and concatenated with the suffix, a boolean mask
+        kcat = [torch.cat([pk[i].expand(B, P, Hkv, Dh), sk[i]], 1)
+                .transpose(1, 2).contiguous() for i in range(NL)]
+        vcat = [torch.cat([pv[i].expand(B, P, Hkv, Dh), sv[i]], 1)
+                .transpose(1, 2).contiguous() for i in range(NL)]
+        mask = torch.cat([torch.ones((B, P), dtype=torch.bool, device=dev),
+                          sp_d >= 0], 1)[:, None, None, :]
+        qs = q[:, :, None, :]
+
+        def library(i=None):
+            i = cyc() if i is None else i
+            return F.scaled_dot_product_attention(qs, kcat[i], vcat[i],
+                                                  attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_err = (library(0)[:, :, 0].float() - ref.float()).abs().max()
+        times["library"] = time_ms(torch, library, iters=48)
+        del kcat, vcat
+        # today's engine route over the same values: the paged kernel
+        # (attend only, 4 pages per block) over an f32 pool, as the engine
+        # keeps it, and over a bf16 pool, the op's bytes per element
+        pools32 = pools.float()
+
+        def paged(pk_, pv_):
+            def run():
+                i = cyc()
+                return pd_ops.paged_decode_attention(
+                    q, pk_[i], pv_[i], pt_d, qp_d, variant="blocked")
+            return run
+
+        times["paged_f32_pool"] = time_ms(torch, paged(pools32[0],
+                                                       pools32[1]), iters=24)
+        times["paged_bf16_pool"] = time_ms(torch, paged(pools[0], pools[1]),
+                                           iters=24)
+        del pools32
+        # bound: the prefix K/V read once, q, positions, the partial out
+        nbytes = 2 * P * Hkv * Dh * 2 + q.numel() * 2 + 4 * P \
+            + B * H * (Dh + 2) * 4
+        flops = 4 * B * H * P * Dh
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        cuda_core_ms = flops / PEAK_FLOPS["float32"] * 1e3
+        log("kernels.shared_prefix.full",
+            shape=f"B={B},P={P},T={T},H={H},Hkv={Hkv},Dh={Dh},bf16",
+            suffix_lens=f"{int(lens.min())}..{int(lens.max())}",
+            prefix_launches=n_sp, decode_attention_launches=n_da,
+            op_max_abs_err=f"{op_err:.3e}",
+            kernel_max_abs_err_acc_m_l=json.dumps(
+                [float(f"{e:.3e}") for e in k_errs]),
+            f32_op_vs_paged_route=f"{paged_diff:.3e}", f32_tolerance=2e-5,
+            sdpa_err=f"{lib_err.item():.3e}",
+            **{f"{k}_ms": f"{v:.4f}" for k, v in times.items()},
+            **{f"{k}_device_ms": f"{v:.4f}" for k, v in device_ms.items()},
+            op_top_kernels_ms_per_call=json.dumps(top["op"]),
+            prefix_top_kernels_ms_per_call=json.dumps(top["prefix_kernel"]),
+            bound_ms=f"{b_ms:.5f}", bound_by=b_by, bytes=nbytes,
+            flops=flops, f32_cuda_core_ms=f"{cuda_core_ms:.5f}")
+        if B == 8:
+            entry = {
+                "name": "shared_prefix_attention", "route": "cuda",
+                "source":
+                    "src/repro_torch/kernels/csrc/shared_prefix_attention.cu",
+                "replaces":
+                    "src/repro/kernels/shared_prefix_attention/kernel.py:65",
+                "launches": None, "max_abs_err": k_errs[0],
+                "ms": times["prefix_kernel"],
+                "device_ms": device_ms["prefix_kernel"],
+                "plain_ms": times["prefix_plain"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": times["library"],
+                "library_note": "SDPA over the broadcast [prefix; suffix], "
+                                "the whole op's function",
+                "op_ms": times["op"], "op_device_ms": device_ms["op"],
+                "plain_op_ms": times["op_plain"],
+                "paged_route_ms": times["paged_f32_pool"]}
+        entry["launches"] = (entry["launches"] or 0) + n_sp
+        del pools, pk, pv, sk, sv
+        torch.cuda.empty_cache()
+    return entry
+
+
 def first_difference(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
@@ -430,21 +708,28 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
         admit_s.append(time.perf_counter() - t0)
         return slot
 
+    def serve(eng):
+        """Four requests and a duplicate, then one more after the first
+        decode step: up to five live rows."""
+        handles = {n: eng.submit(prompts[n], max_new_tokens=max_new)
+                   for n in ("a", "b", "c", "d")}
+        handles["dup_a"] = eng.submit(prompts["a"], max_new_tokens=max_new)
+        deadline = time.monotonic() + 300
+        while eng.stats.decode_tokens < 1:
+            assert time.monotonic() < deadline, "engine made no decode step"
+            time.sleep(0.001)
+        handles["late_e"] = eng.submit(prompts["late_e"],
+                                       max_new_tokens=max_new)
+        outs = {n: h.result(timeout=600) for n, h in handles.items()}
+        eng.drain()         # the last step's timer appends after results
+        return outs
+
     eng._decode_once, eng._admit_one = timed_decode, timed_admit
     for ops in (fa_ops, da_ops, lru_ops, pd_ops):
         ops.launches = 0
     plain0 = plain_calls["n"]
     t_run = time.perf_counter()
-    handles = {n: eng.submit(prompts[n], max_new_tokens=max_new)
-               for n in ("a", "b", "c", "d")}
-    handles["dup_a"] = eng.submit(prompts["a"], max_new_tokens=max_new)
-    deadline = time.monotonic() + 300
-    while eng.stats.decode_tokens < 1:
-        assert time.monotonic() < deadline, "engine made no decode step"
-        time.sleep(0.001)
-    handles["late_e"] = eng.submit(prompts["late_e"], max_new_tokens=max_new)
-    outs = {n: h.result(timeout=600) for n, h in handles.items()}
-    eng.drain()             # the last step's timer appends after results
+    outs = serve(eng)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches = {"flash_attention": fa_ops.launches,
@@ -464,7 +749,7 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
     assert eng.kv is None, "the dense-row path allocated pages"
     n_steps, admitted = len(step_s), len(admit_s)
     log("hybrid.run", model="recurrentgemma-2b(full width, 26 blocks)",
-        params=n_params, requests=len(handles), admitted=admitted,
+        params=n_params, requests=len(outs), admitted=admitted,
         tokens_each=max_new, coalesced=st.coalesced_requests,
         peak_batch=st.peak_batch, admission_waves=st.admission_waves,
         view_rebuilds=st.view_rebuilds, decode_steps=n_steps,
@@ -525,17 +810,34 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
                                 logits["torch"].argmax(-1)))
     del view, row, cache
 
-    # batch invariance: the first request, decoded again alone
+    # batch invariance: the first request, decoded again alone; then the
+    # same on a float32 copy of the weights, where other GEMM shapes at
+    # B=1 and at B=8 differ by f32 rounding only, so a token that differs
+    # there is a fault of the port, not bf16 rounding on flat logits
     alone = eng.generate([prompts["a"]], max_new_tokens=max_new)[0]
     log("hybrid.batch_invariance", request="a", batched_vs_alone=
         "equal" if alone == outs["a"] else "differ",
         first_differing_token=first_difference(alone, outs["a"]))
     eng.shutdown()
-    hybrid_ring(torch, model, words, vocab)
+    e32 = InferenceEngine(cfg.replace(dtype="float32"), seed=0)
+    e32.load(model.state_dict())                       # bf16 -> f32, exact
+    outs32 = serve(e32)
+    alone32 = e32.generate([prompts["a"]], max_new_tokens=max_new)[0]
+    assert all(len(o) == max_new for o in outs32.values()), "short output"
+    log("hybrid.batch_invariance", dtype="float32", request="a",
+        peak_batch=e32.stats.peak_batch, batched_vs_alone=
+        "equal" if alone32 == outs32["a"] else "differ",
+        first_differing_token=first_difference(alone32, outs32["a"]),
+        tokens_equal_bf16_run=json.dumps(
+            {n: outs32[n] == outs[n] for n in outs}))
+    assert alone32 == outs32["a"], "float32 tokens depend on the batch"
+    e32.shutdown()
+    hybrid_ring(torch, model, e32.model, words, vocab)
+    e32.unload()
     return launches
 
 
-def hybrid_ring(torch, model, words, vocab):
+def hybrid_ring(torch, model, m32, words, vocab):
     """Prefill 2100 tokens (past the 2048 window, 2100 % 2048 != 0), then
     decode 8 under "cuda": the logits must follow the teacher-forced
     forward, which needs position p in ring slot p % 2048.  Run on a
@@ -543,11 +845,8 @@ def hybrid_ring(torch, model, words, vocab):
     only (in bf16 their rounding differs by a few percent of the logit
     scale on random weights, which would hide a misplaced ring); as a
     control, the same decode from the ring placed as the JAX reference
-    places it (slots 0..T-1)."""
-    from repro_torch.engine.models import build_model
+    places it (slots 0..T-1).  ``m32`` is the float32 copy of ``model``."""
     dev = torch.device("cuda")
-    m32 = build_model(model.cfg.replace(dtype="float32"), device=dev)
-    m32.load_state_dict(model.state_dict())        # bf16 -> f32, exact
     S, n_dec = 2100, 8
     T = model.cfg.local_attn_window
     toks = torch.as_tensor(words.integers(1, vocab, S + n_dec),
@@ -584,10 +883,10 @@ def hybrid_ring(torch, model, words, vocab):
         tolerance="1e-3*scale",
         same_argmax=torch.equal(got.argmax(-1), ref.argmax(-1)),
         control_slots_0_to_T_max_abs_diff=f"{ctrl:.4e}")
-    del m32
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -598,7 +897,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.engine import tokenizer
     from repro_torch.engine.engine import InferenceEngine
-    from repro_torch.engine.models import layers, rglru
+    from repro_torch.engine.models import build_model, layers, rglru
     from repro_torch.kernels import build
     from repro_torch.kernels.common import NEG_INF
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -612,6 +911,9 @@ def main() -> int:
         scatter_append_ref)
     from repro_torch.kernels.rglru_scan import ops as lru_ops
     from repro_torch.kernels.rglru_scan.ref import linear_scan_ref
+    from repro_torch.kernels.shared_prefix_attention import ops as sp_ops
+    from repro_torch.kernels.shared_prefix_attention.ref import (
+        prefix_attention_ref, shared_prefix_attention_ref)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -864,9 +1166,16 @@ def main() -> int:
                                   decode_attention_ref, lse_combine, NEG_INF))
     kernels.append(kernels_scan(torch, rng, lru_ops, linear_scan_ref))
     kernels_flash_hybrid(torch, F, t, rng, fa_ops, flash_attention_ref)
+    kernels_shared_prefix(torch, t, rng, sp_ops, prefix_attention_ref,
+                          shared_prefix_attention_ref, NEG_INF)
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 3. engine
+    # ----------------------------------------------------- 3. shared prefix
+    kernels.append(shared_prefix_full(torch, F, np, sp_ops, da_ops, pd_ops,
+                                      prefix_attention_ref,
+                                      shared_prefix_attention_ref))
+
+    # ----------------------------------------------------------- 4. engine
     cfg = get_config("qwen3-1.7b")
     eng = InferenceEngine(cfg, seed=0)
     torch.cuda.reset_peak_memory_stats()
@@ -1001,6 +1310,26 @@ def main() -> int:
     log("engine.step_parity", rows=4, max_abs_diff=f"{diff:.4e}",
         logit_scale=f"{scale:.4e}", tolerance="5e-2*scale",
         same_argmax=same_argmax)
+    # the same step on a float32 copy of the weights: what is left of the
+    # difference past f32 rounding is a fault, not bf16 rounding
+    m32 = build_model(cfg.replace(dtype="float32"), device=dev)
+    m32.load_state_dict(eng.model.state_dict())        # bf16 -> f32, exact
+    logits = {}
+    for impl in ("cuda", "torch"):
+        lg, _, _ = m32.paged_decode_step(
+            tok_step, kv.k.clone(), kv.v.clone(), pt_step, lens_step,
+            impl=impl)
+        assert bool(torch.isfinite(lg).all()), impl
+        logits[impl] = lg
+    del m32
+    diff = (logits["cuda"] - logits["torch"]).abs().max().item()
+    scale = logits["torch"].abs().max().item()
+    assert diff <= 1e-3 * scale, (diff, scale)
+    log("engine.step_parity", dtype="float32", rows=4,
+        max_abs_diff=f"{diff:.4e}", logit_scale=f"{scale:.4e}",
+        tolerance="1e-3*scale", same_argmax=torch.equal(
+            logits["cuda"].argmax(-1), logits["torch"].argmax(-1)))
+    del logits
 
     # where a step's time goes: the profiler's device kernels over a few
     # decode steps (the 5 warm rows padded to 8, as the engine pads) and
@@ -1058,13 +1387,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 4. hybrid
+    # ----------------------------------------------------------- 5. hybrid
     hyb = hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine,
                         fa_ops, da_ops, lru_ops, pd_ops, plain_calls)
     kernels[2]["launches"] = hyb["decode_attention"]
     kernels[3]["launches"] = hyb["rglru_scan"]
 
-    # ------------------------------------------------------- 5. the report
+    # ------------------------------------------------------- 6. the report
+    log("done", wall_s=f"{time.perf_counter() - t_start:.3f}",
+        build_s=f"{build.build_seconds:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

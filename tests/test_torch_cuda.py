@@ -28,6 +28,10 @@ from repro_torch.kernels.paged_decode_attention.ref import (  # noqa: E402
     paged_decode_attention_ref, scatter_append_ref)
 from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import linear_scan_ref  # noqa: E402
+from repro_torch.kernels.shared_prefix_attention import (  # noqa: E402
+    ops as sp_ops)
+from repro_torch.kernels.shared_prefix_attention.ref import (  # noqa: E402
+    prefix_attention_ref, shared_prefix_attention_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -243,3 +247,86 @@ def test_scan_kernel_equals_plain_bitwise(dev, B, S, D):
     torch.cuda.synchronize()
     assert lru_ops.launches == n0 + 1
     assert torch.equal(h, linear_scan_ref(a, b))
+
+
+def _prefix_case(dev, B, H, Hkv, Dh, P, Ts, dtype, seed=21):
+    """The shared prefix and ragged suffixes: row 0 sees its whole suffix,
+    the last-but-one row's suffix is all -1 and the last row's query sits
+    before the prefix's end (its suffix is masked)."""
+    rng = np.random.default_rng(seed)
+    q = _t(rng.normal(size=(B, H, Dh)), dtype, dev)
+    pk = _t(rng.normal(size=(P, Hkv, Dh)), dtype, dev)
+    pv = _t(rng.normal(size=(P, Hkv, Dh)), dtype, dev)
+    sk = _t(rng.normal(size=(B, Ts, Hkv, Dh)), dtype, dev)
+    sv = _t(rng.normal(size=(B, Ts, Hkv, Dh)), dtype, dev)
+    lens = rng.integers(1, Ts + 1, size=(B,))
+    lens[0] = Ts
+    qp = P + lens - 1
+    lens[-2] = 0
+    qp[-1] = P // 3
+    sp = np.where(np.arange(Ts)[None, :] < lens[:, None],
+                  P + np.arange(Ts)[None, :], -1)
+    return (q, pk, pv, sk, sv,
+            torch.as_tensor(qp, dtype=torch.int32).to(dev),
+            torch.as_tensor(sp, dtype=torch.int32).to(dev))
+
+
+@pytest.mark.parametrize("B,H,Hkv,Dh", [
+    (4, 16, 8, 128), (3, 10, 1, 256), (5, 4, 2, 64), (64, 16, 8, 128),
+    (8, 16, 1, 64)])
+@pytest.mark.parametrize("P", [37, 131, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_kernel_matches_plain(dev, B, H, Hkv, Dh, P, dtype):
+    """The sweep's shapes, P prime and not a multiple of any tile, and
+    B*G = 128 query rows per KV head (B=64, G=2 and B=8, G=16)."""
+    q, pk, pv, *_ = _prefix_case(dev, B, H, Hkv, Dh, P, 4, dtype)
+    pos = torch.arange(P, dtype=torch.int32, device=dev)
+    pos[::7] = -1                               # masked prefix slots
+    n0 = sp_ops.launches
+    acc, m, l = sp_ops.prefix_attention(q, pk, pv, pos)
+    torch.cuda.synchronize()
+    assert sp_ops.launches == n0 + 1
+    ra, rm, rl = prefix_attention_ref(q, pk, pv, pos)
+    # the kernel sums in f32 in another order: acc is unnormalized
+    torch.testing.assert_close(acc, ra, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(m, rm, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(l, rl, atol=2e-5, rtol=2e-5)
+
+
+def test_prefix_kernel_with_no_valid_key_is_pinned(dev):
+    q, pk, pv, *_ = _prefix_case(dev, 3, 16, 8, 128, 200, 4, torch.float32)
+    acc, m, l = sp_ops.prefix_attention(
+        q, pk, pv, torch.full((200,), -1, dtype=torch.int32, device=dev))
+    assert torch.all(acc == 0) and torch.all(l == 0)
+    assert torch.all(m == NEG_INF)
+
+
+@pytest.mark.parametrize("H,Hkv,Dh", [(16, 8, 128), (10, 1, 256),
+                                      (4, 2, 64)])
+@pytest.mark.parametrize("P", [37, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shared_prefix_op_matches_plain(dev, H, Hkv, Dh, P, dtype):
+    q, pk, pv, sk, sv, qp, sp = _prefix_case(dev, 5, H, Hkv, Dh, P, 70,
+                                             dtype)
+    n0, d0 = sp_ops.launches, da_ops.launches
+    out = sp_ops.shared_prefix_attention(q, pk, pv, sk, sv, q_positions=qp,
+                                         suffix_positions=sp)
+    torch.cuda.synchronize()
+    assert (sp_ops.launches, da_ops.launches) == (n0 + 1, d0 + 1)
+    ref = shared_prefix_attention_ref(q, pk, pv, sk, sv, q_positions=qp,
+                                      suffix_positions=sp)
+    # bf16: the op's f32 values may round to bf16 the other way (read at
+    # most 2.4e-4 on an H100), so 2e-3 plus one bf16 ulp
+    tol = {"atol": 2e-5, "rtol": 2e-5} if dtype == torch.float32 \
+        else {"atol": 2e-3, "rtol": 8e-3}
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+def test_prefix_kernel_refuses_what_it_cannot_take(dev):
+    q, pk, pv, *_ = _prefix_case(dev, 3, 8, 8, 32, 40, 4, torch.float32)
+    pos = torch.arange(40, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        sp_ops.prefix_attention(q, pk, pv, pos)
+    q, pk, pv, *_ = _prefix_case(dev, 3, 34, 2, 64, 40, 4, torch.float32)
+    with pytest.raises(ValueError, match="query heads"):
+        sp_ops.prefix_attention(q, pk, pv, pos)

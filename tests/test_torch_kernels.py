@@ -34,6 +34,12 @@ from repro.kernels.rglru_scan.ops import (  # noqa: E402
     linear_scan as j_linear_scan)
 from repro.kernels.rglru_scan.ref import (  # noqa: E402
     linear_scan_ref as j_linear_scan_ref)
+from repro.kernels.shared_prefix_attention.kernel import (  # noqa: E402
+    prefix_attention_kernel as j_prefix_kernel)
+from repro.kernels.shared_prefix_attention.ops import (  # noqa: E402
+    shared_prefix_attention as j_shared_prefix)
+from repro.kernels.shared_prefix_attention.ref import (  # noqa: E402
+    shared_prefix_attention_ref as j_shared_prefix_ref)
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.common import NEG_INF  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
@@ -43,6 +49,8 @@ from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     ops as pd_ops)
 from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import linear_scan_ref  # noqa: E402
+from repro_torch.kernels.shared_prefix_attention import (  # noqa: E402
+    ops as sp_ops)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -142,8 +150,23 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
     da_ops.decode_attention(qr[1], kr[1], vr[1], q_positions=qpr[1],
                             kv_positions=kpr[1])
     lru_ops.linear_scan(torch.ones(1, 3, 4), torch.ones(1, 3, 4))
+    n_sp = sp_ops.launches
+    (qs, pk, pv, sk, sv), qps, sps = _prefix_case(2, 4, 2, 16, 37, 8,
+                                                  "float32")
+    sp_ops.prefix_attention(qs[1], pk[1], pv[1],
+                            torch.arange(37, dtype=torch.int32))
+    sp_ops.shared_prefix_attention(qs[1], pk[1], pv[1], sk[1], sv[1],
+                                   q_positions=qps[1],
+                                   suffix_positions=sps[1])
     assert (fa_ops.launches, pd_ops.launches) == (n_fa, n_pd)
     assert (da_ops.launches, lru_ops.launches) == (n_da, n_lru)
+    assert sp_ops.launches == n_sp
+    with pytest.raises(TypeError):
+        sp_ops.prefix_attention(qs[1], pk[1], pv[1],
+                                torch.arange(37, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        sp_ops.prefix_attention(qs[1], pk[1].double(), pv[1],
+                                torch.arange(37, dtype=torch.int32))
     with pytest.raises(TypeError):
         lru_ops.linear_scan(torch.ones(1, 3, 4, dtype=torch.bfloat16),
                             torch.ones(1, 3, 4, dtype=torch.bfloat16))
@@ -362,6 +385,118 @@ def test_linear_scan_matches_jax_ref_and_pallas_interpret(B, S, D):
     _close(linear_scan_ref(torch.from_numpy(a), torch.from_numpy(b),
                            torch.from_numpy(h0)),
            j_linear_scan_ref(ja, jb, jnp.asarray(h0)), 1e-5)
+
+
+# ------------------------------------------- shared-prefix decode attention
+
+def _prefix_case(B, H, Hkv, Dh, P, Ts, dtype, seed=21):
+    """q, the shared prefix and per-row suffixes of Ts slots.  Row 0 sees
+    its whole suffix; a middle row has a ragged suffix (its tail slots
+    -1); with B >= 3 the last-but-one row's suffix is all -1 and the last
+    row's query sits before the prefix's end (q_position < P - 1), so its
+    suffix is masked and only the prefix counts."""
+    rng = np.random.default_rng(seed)
+    arrays = [_pair(rng.normal(size=shape), dtype) for shape in (
+        (B, H, Dh), (P, Hkv, Dh), (P, Hkv, Dh), (B, Ts, Hkv, Dh),
+        (B, Ts, Hkv, Dh))]
+    lens = rng.integers(1, Ts + 1, size=(B,))
+    lens[0] = Ts
+    qp = P + lens - 1
+    if B >= 3:
+        lens[-2] = 0
+        qp[-1] = P // 3
+    sp = np.where(np.arange(Ts)[None, :] < lens[:, None],
+                  P + np.arange(Ts)[None, :], -1)
+    return arrays, _ints(qp), _ints(sp)
+
+
+@pytest.mark.parametrize("B,H,Hkv,Dh,P,bp", [
+    (2, 4, 2, 16, 32, 16), (3, 8, 2, 32, 64, 32), (2, 10, 1, 32, 37, 37),
+    (4, 4, 4, 16, 48, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefix_attention_matches_pallas_kernel_interpret(B, H, Hkv, Dh, P,
+                                                          bp, dtype):
+    """The plain version of the prefix kernel against the Pallas kernel,
+    on the unnormalized (acc, m, l); some prefix slots are -1."""
+    (q, pk, pv, _, _), _, _ = _prefix_case(B, H, Hkv, Dh, P, 4, dtype)
+    pos = np.arange(P, dtype=np.int32)
+    pos[RNG.permutation(P)[:P // 5]] = -1
+    pos = _ints(pos)
+    acc, m, l = sp_ops.prefix_attention(q[1], pk[1], pv[1], pos[1])
+    ja, jm, jl = j_prefix_kernel(q[0], pk[0], pv[0], pos[0], block_p=bp,
+                                 interpret=True)
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    # acc is unnormalized (up to l times a value): f32 relative tolerance
+    for a, b in ((acc, ja), (m, jm), (l, jl)):
+        _close(a, b, 2e-5)
+
+
+def test_prefix_attention_with_no_valid_key_is_pinned():
+    (q, pk, pv, _, _), _, _ = _prefix_case(3, 4, 2, 16, 16, 4, "float32")
+    pos = _ints(np.full((16,), -1))
+    acc, m, l = sp_ops.prefix_attention(q[1], pk[1], pv[1], pos[1])
+    ja, jm, jl = j_prefix_kernel(q[0], pk[0], pv[0], pos[0], block_p=8,
+                                 interpret=True)
+    assert torch.all(acc == 0) and torch.all(l == 0)
+    assert torch.all(m == np.float32(NEG_INF))
+    for a, b in ((acc, ja), (m, jm), (l, jl)):
+        _close(a, b, 0, exact=True)
+
+
+@pytest.mark.parametrize("P,Ts", [(32, 16), (64, 32), (37, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_shared_prefix_op_matches_jax_op_interpret(P, Ts, dtype):
+    """The sweep of tests/test_kernels.py plus a prime P, a row whose
+    suffix is all -1 and a query before the prefix's end."""
+    (q, pk, pv, sk, sv), qp, sp = _prefix_case(4, 4, 2, 16, P, Ts, dtype)
+    out = sp_ops.shared_prefix_attention(
+        q[1], pk[1], pv[1], sk[1], sv[1], q_positions=qp[1],
+        suffix_positions=sp[1])
+    ref = j_shared_prefix(q[0], pk[0], pv[0], sk[0], sv[0],
+                          q_positions=qp[0], suffix_positions=sp[0],
+                          block_p=16, block_t=8, interpret=True)
+    assert out.dtype == q[1].dtype
+    _close(out, ref, _tol(dtype))
+
+
+@pytest.mark.parametrize("P,Ts", [(32, 16), (64, 32), (37, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_shared_prefix_op_matches_jax_ref_where_queries_follow_prefix(
+        P, Ts, dtype):
+    """Where every q_position >= P - 1 the JAX oracle's prefix mask
+    (kp <= qp) hides nothing, and the port equals it."""
+    (q, pk, pv, sk, sv), qp, sp = _prefix_case(3, 8, 2, 32, P, Ts, dtype,
+                                               seed=P)
+    qp = _ints(np.maximum(qp[1].numpy(), P - 1))
+    out = sp_ops.shared_prefix_attention(
+        q[1], pk[1], pv[1], sk[1], sv[1], q_positions=qp[1],
+        suffix_positions=sp[1])
+    ref = j_shared_prefix_ref(q[0], pk[0], pv[0], sk[0], sv[0],
+                              q_positions=qp[0], suffix_positions=sp[0])
+    _close(out, ref, _tol(dtype))
+
+
+def test_jax_ref_and_op_disagree_before_the_prefix_end_port_follows_op():
+    """At q_position < P - 1 the JAX oracle masks prefix keys past the
+    query (decode_attention/ref.py:26) and the Pallas kernel does not
+    (shared_prefix_attention/kernel.py:49).  The port follows the op."""
+    B, H, Hkv, Dh, P, Ts = 2, 4, 2, 16, 32, 16
+    (q, pk, pv, sk, sv), _, sp = _prefix_case(B, H, Hkv, Dh, P, Ts,
+                                              "float32")
+    sp = _ints(np.broadcast_to(P + np.arange(Ts), (B, Ts)))
+    qp = _ints([P + Ts - 1, 10])              # row 1 sits before P - 1
+    args = dict(q_positions=qp[0], suffix_positions=sp[0])
+    j_op = np.asarray(j_shared_prefix(q[0], pk[0], pv[0], sk[0], sv[0],
+                                      block_p=16, block_t=8, interpret=True,
+                                      **args))
+    j_ref = np.asarray(j_shared_prefix_ref(q[0], pk[0], pv[0], sk[0], sv[0],
+                                           **args))
+    t_args = dict(q_positions=qp[1], suffix_positions=sp[1])
+    port = sp_ops.shared_prefix_attention(q[1], pk[1], pv[1], sk[1], sv[1],
+                                          **t_args)
+    np.testing.assert_allclose(j_op[0], j_ref[0], atol=2e-5, rtol=2e-5)
+    assert np.abs(j_op[1] - j_ref[1]).max() > 0.1
+    _close(port, j_op, 2e-5)
 
 
 # ------------------------------------------------------ online softmax

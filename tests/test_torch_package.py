@@ -51,7 +51,9 @@ def test_every_module_imports_without_jax():
               "repro_torch.engine.models.rglru",
               "repro_torch.engine.models.xlstm",
               "repro_torch.kernels.decode_attention.ops",
-              "repro_torch.kernels.rglru_scan.ops"):
+              "repro_torch.kernels.rglru_scan.ops",
+              "repro_torch.kernels.shared_prefix_attention.ops",
+              "repro_torch.kernels.shared_prefix_attention.ref"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
@@ -70,6 +72,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     sources = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
     assert PKG / "configs" / "recurrentgemma_2b.py" in sources
     assert PKG / "engine" / "models" / "rglru.py" in sources
+    assert PKG / "kernels" / "shared_prefix_attention" / "ops.py" in sources
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
