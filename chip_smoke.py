@@ -12,12 +12,15 @@ each:
 1. environment: card name and power limit, torch/CUDA versions, build time;
 2. kernels: every CUDA kernel against its plain PyTorch version on the
    card (hostile paged layout, padding-row poison, single == blocked and
-   fused == scatter-then-attend bitwise, the flash sweep up to Dh=256,
-   decode attention over wrapped rings with empty slots, a window and a
-   row with no valid key, the RG-LRU scan bitwise, the shared-prefix
-   kernel and op over prime and long prefixes with ragged suffixes, and
-   the main paths' full-width shapes with kernel / plain / library times
-   and the card's lower bound);
+   fused == scatter-then-attend bitwise, the flash sweep up to Dh=256 and
+   the tensor-core body's tile skipping over unsorted positions with
+   empty slots, rows without a valid key and skippable windows, decode
+   attention over wrapped rings with empty slots, a window and a row with
+   no valid key, split over one, several and many chunks, bitwise the
+   same for a row alone and in a batch of eight, the RG-LRU scan bitwise,
+   the shared-prefix kernel and op over prime and long prefixes with
+   ragged suffixes, and the main paths' full-width shapes with kernel /
+   plain / library times and the card's lower bound);
 3. shared prefix: the Hydragen op through its entry point at qwen3-1.7b's
    attention width, B=8 and B=32 rows on one 2048-token prefix; both of
    its kernels must launch, and in f32 it must equal today's engine route
@@ -25,9 +28,10 @@ each:
 4. engine: full-width qwen3-1.7b (random weights from a seed) served by
    the continuous-batching ``InferenceEngine``: prefix sharing with a
    copy-on-write partial page, a coalesced duplicate, a request admitted
-   mid-decode; the kernels' launch counters must move and the plain
-   versions must not run; the CUDA and plain decode steps must agree, in
-   bf16 and, on a float32 copy of the weights, to f32 rounding; then the
+   mid-decode; the kernels' launch counters must move, every bf16 flash
+   launch must take the tensor cores and every decode launch the split,
+   and the plain versions must not run; the CUDA and plain decode steps
+   must agree, in bf16 and, on a float32 copy of the weights, to f32 rounding; then the
    same model on the dense-view arm (``paged_decode=False``), which
    decodes in the decode_attention kernel;
 5. hybrid: full-width recurrentgemma-2b served through the engine's
@@ -130,6 +134,84 @@ def ring_positions(np, qp, T):
     return np.where(kp >= 0, kp, -1).astype(np.int32)
 
 
+def kernels_flash_skipping(torch, t, rng, fa_ops, flash_attention_ref):
+    """The tensor-core body's tile skipping against the plain version:
+    permuted positions with scattered -1 slots, Sq and Skv no multiple of
+    a tile, a query tile mixing rows with and without a valid key (those
+    give mean(V)), and a window that leaves most KV tiles skippable."""
+    import numpy as np
+    dev = torch.device("cuda")
+
+    def ints(a):
+        return torch.as_tensor(np.asarray(a, np.int32)).to(dev)
+
+    n_tc = fa_ops.tensor_core_launches
+    n_calls = 0
+    for (H, Hkv, Dh) in ((16, 8, 128), (10, 1, 256), (4, 2, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 2e-5 if dtype == torch.float32 else 3e-2
+            # unsorted positions, empty slots, ragged Sq and Skv
+            B, Sq, Skv = 2, 100, 203
+            q = t(rng.normal(size=(B, Sq, H, Dh)), dtype)
+            k = t(rng.normal(size=(B, Skv, Hkv, Dh)), dtype)
+            v = t(rng.normal(size=(B, Skv, Hkv, Dh)), dtype)
+            kp = np.stack([rng.permutation(Skv) for _ in range(B)])
+            kp[rng.random(size=kp.shape) < 0.15] = -1
+            qp = np.stack([np.sort(rng.choice(Skv, Sq, replace=False))
+                           for _ in range(B)])
+            for window in (0, 29):
+                out = fa_ops.flash_attention(q, k, v, q_positions=ints(qp),
+                                             kv_positions=ints(kp),
+                                             window=window)
+                ref = flash_attention_ref(q, k, v, q_positions=ints(qp),
+                                          kv_positions=ints(kp),
+                                          window=window)
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           atol=tol, rtol=tol)
+                n_calls += dtype == torch.bfloat16
+            # rows without a valid key inside a tile that skips tiles
+            B, Sq, Skv = 1, 130, 300
+            q = t(rng.normal(size=(B, Sq, H, Dh)), dtype)
+            k = t(rng.normal(size=(B, Skv, Hkv, Dh)), dtype)
+            v = t(rng.normal(size=(B, Skv, Hkv, Dh)), dtype)
+            qp = np.arange(Skv - Sq, Skv)[None].copy()
+            qp[0, [3, 40]] = -1
+            kvp = np.arange(Skv)[None]
+            out = fa_ops.flash_attention(q, k, v, q_positions=ints(qp),
+                                         kv_positions=ints(kvp), window=48)
+            ref = flash_attention_ref(q, k, v, q_positions=ints(qp),
+                                      kv_positions=ints(kvp), window=48)
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                       rtol=tol)
+            mean_v = v[0].float().mean(0).repeat_interleave(H // Hkv, 0)
+            for row in (3, 40):
+                torch.testing.assert_close(out[0, row].float(), mean_v,
+                                           atol=tol, rtol=tol)
+            n_calls += dtype == torch.bfloat16
+        # a 64-key window over 700 keys: most KV tiles skipped
+        S = 700
+        q = t(rng.normal(size=(1, S, H, Dh)), torch.bfloat16)
+        k = t(rng.normal(size=(1, S, Hkv, Dh)), torch.bfloat16)
+        v = t(rng.normal(size=(1, S, Hkv, Dh)), torch.bfloat16)
+        pos = ints(np.arange(S)[None])
+        out = fa_ops.flash_attention(q, k, v, q_positions=pos,
+                                     kv_positions=pos, window=64)
+        ref = flash_attention_ref(q, k, v, q_positions=pos,
+                                  kv_positions=pos, window=64)
+        torch.testing.assert_close(out.float(), ref.float(), atol=3e-2,
+                                   rtol=3e-2)
+        n_calls += 1
+    torch.cuda.synchronize()
+    assert fa_ops.tensor_core_launches - n_tc == n_calls, \
+        "a bf16 call at Dh 64/128/256 missed the tensor-core body"
+    log("kernels.flash_skipping", shapes="H/Hkv/Dh 16/8/128, 10/1/256, "
+        "4/2/64 x f32/bf16", cases="permuted kv positions with -1 slots "
+        "(Sq=100,Skv=203, window 0/29); rows 3,40 without a valid key in a "
+        "skipping tile (window 48); window 64 over 700 keys",
+        vs_plain="ok", no_valid_key_rows="mean(V)",
+        bf16_tensor_core_launches=n_calls)
+
+
 def kernels_decode(torch, F, t, rng, da_ops, decode_attention_ref,
                    lse_combine, NEG_INF):
     """The decode kernel against its plain version on hostile rings, then
@@ -168,12 +250,67 @@ def kernels_decode(torch, F, t, rng, da_ops, decode_attention_ref,
                     for sl in (slice(0, half), slice(half, T))]
                 torch.testing.assert_close(lse_combine(parts).float(),
                                            out.float(), atol=tol, rtol=tol)
+    # the split: one chunk, T no multiple of the chunk, many chunks of one
+    # sub-tile and (T=5000) of several; whole chunks of empty slots
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    grids = []
+    for (T, H, Hkv, Dh) in ((40, 4, 2, 64), (100, 16, 8, 128),
+                            (517, 10, 1, 256), (5000, 10, 1, 256)):
+        chunk, n_chunks = da_ops.plan_chunks(T, Dh, n_sm)
+        grids.append(f"T={T}:{n_chunks}x{chunk}")
+        for dtype in (torch.float32, torch.bfloat16):
+            B = 3
+            q = t(rng.normal(size=(B, H, Dh)), dtype)
+            k = t(rng.normal(size=(B, T, Hkv, Dh)), dtype)
+            v = t(rng.normal(size=(B, T, Hkv, Dh)), dtype)
+            qp = np.asarray([2 * T + 3, T // 2, 7 * T])
+            kp = ring_positions(np, qp, T)
+            kp[1, chunk // 2:chunk // 2 + 3 * chunk] = -1
+            kp[-1] = -1
+            qp_d = torch.as_tensor(qp, dtype=torch.int32).to(dev)
+            kp_d = torch.as_tensor(kp).to(dev)
+            s0 = da_ops.split_launches
+            out, m, l = da_ops.decode_attention(
+                q, k, v, q_positions=qp_d, kv_positions=kp_d,
+                return_lse=True)
+            assert da_ops.split_launches - s0 == (n_chunks > 1)
+            ref, mr, lr = decode_attention_ref(
+                q, k, v, q_positions=qp_d, kv_positions=kp_d,
+                return_lse=True)
+            tol = 2e-5 if dtype == torch.float32 else 3e-2
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                       rtol=tol)
+            torch.testing.assert_close(m, mr, atol=2e-5, rtol=2e-5)
+            torch.testing.assert_close(l, lr, atol=2e-5, rtol=2e-5)
+            assert torch.all(out[-1] == 0) and torch.all(
+                m[-1] == NEG_INF) and torch.all(l[-1] == 0), "pin"
+    # the chunk plan ignores B: a row alone and in a batch of eight
+    for dtype in (torch.float32, torch.bfloat16):
+        B, T, H, Hkv, Dh = 8, 512, 10, 1, 256
+        q = t(rng.normal(size=(B, H, Dh)), dtype)
+        k = t(rng.normal(size=(B, T, Hkv, Dh)), dtype)
+        v = t(rng.normal(size=(B, T, Hkv, Dh)), dtype)
+        qp_d = torch.as_tensor(rng.integers(100, 3 * T, size=(B,)),
+                               dtype=torch.int32).to(dev)
+        kp_d = torch.as_tensor(ring_positions(np, qp_d.cpu().numpy(),
+                                              T)).to(dev)
+        whole = da_ops.decode_attention(q, k, v, q_positions=qp_d,
+                                        kv_positions=kp_d, window=200,
+                                        return_lse=True)
+        one = da_ops.decode_attention(
+            q[2:3].contiguous(), k[2:3].contiguous(), v[2:3].contiguous(),
+            q_positions=qp_d[2:3].contiguous(),
+            kv_positions=kp_d[2:3].contiguous(), window=200,
+            return_lse=True)
+        for a, b in zip(one, whole):
+            assert torch.equal(a[0], b[2]), "decode depends on B"
     torch.cuda.synchronize()
     log("kernels.decode_attention",
         sweep="G=10/Dh=256 and G=2/Dh=128 x f32/bf16 x window 0/37",
         cases="wrapped ring, unwrapped ring with -1 slots, padding row",
         vs_plain="ok", padding_row="pinned(0,NEG_INF,0)",
-        split_halves_lse_combine="ok")
+        split_halves_lse_combine="ok", split_grids=",".join(grids),
+        empty_chunks="ok", row_alone_vs_in_batch_of_8="bitwise")
 
     # the hybrid's decode step: B=8 rows over a 512-slot ring (engine
     # defaults: max_seq_len 512 under the 2048 window), bf16; sixteen
@@ -226,12 +363,14 @@ def kernels_decode(torch, F, t, rng, da_ops, decode_attention_ref,
         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
         "launches": None, "max_abs_err": err,
         "ms": time_ms(torch, run, iters=48),
+        "device_ms": profile_calls(torch, run, 48)[1],
         "plain_ms": time_ms(torch, plain, iters=16),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(torch, library, iters=48)}
     log("kernels.decode_attention_main",
         shape=f"B={B},T={T},H={H},Hkv={Hkv},Dh={Dh},bf16,valid_keys={valid}",
         max_abs_err=f"{err:.3e}", tolerance=3e-2, ms=f"{entry['ms']:.4f}",
+        device_ms=f"{entry['device_ms']:.4f}",
         plain_ms=f"{entry['plain_ms']:.4f}",
         library_ms=f"{entry['library_ms']:.4f}", bound_ms=f"{b_ms:.5f}",
         bound_by=b_by, bytes=nbytes)
@@ -281,7 +420,8 @@ def kernels_scan(torch, rng, lru_ops, linear_scan_ref):
 
 def kernels_flash_hybrid(torch, F, t, rng, fa_ops, flash_attention_ref):
     """The flash kernel at the hybrid's prefill shape (one 384-token
-    prompt, MQA, Dh=256, window 2048), bf16: error, times, bound."""
+    prompt, MQA, Dh=256, window 2048), bf16: error, times, bound; it must
+    take the tensor-core body.  Returns those numbers."""
     dev = torch.device("cuda")
     B, S, H, Hkv, Dh, window = 1, 384, 10, 1, 256, 2048
     q = t(rng.normal(size=(B, S, H, Dh)), torch.bfloat16)
@@ -311,12 +451,23 @@ def kernels_flash_hybrid(torch, F, t, rng, fa_ops, flash_attention_ref):
     pairs = int(mask.sum().item())
     nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + 4 * 2 * pos.numel()
     b_ms, b_by = bound(nbytes, 4 * Dh * H * pairs, "bfloat16")
-    log("kernels.flash_hybrid", shape=f"B={B},Sq=Skv={S},H={H},Hkv={Hkv},"
-        f"Dh={Dh},window={window},bf16", max_abs_err=f"{err:.3e}",
-        tolerance=3e-2, ms=f"{time_ms(torch, run):.4f}",
-        plain_ms=f"{time_ms(torch, plain):.4f}",
-        library_ms=f"{time_ms(torch, library):.4f}", bound_ms=f"{b_ms:.5f}",
-        bound_by=b_by)
+    n_tc = fa_ops.tensor_core_launches
+    run()
+    assert fa_ops.tensor_core_launches == n_tc + 1, \
+        "Dh=256 missed the tensor cores"
+    res = {"shape": f"B={B},Sq=Skv={S},H={H},Hkv={Hkv},Dh={Dh},"
+                    f"window={window},bf16",
+           "max_abs_err": err, "ms": time_ms(torch, run),
+           "device_ms": profile_calls(torch, run, 20)[1],
+           "plain_ms": time_ms(torch, plain), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": time_ms(torch, library)}
+    log("kernels.flash_hybrid", shape=res["shape"], max_abs_err=f"{err:.3e}",
+        tolerance=3e-2, ms=f"{res['ms']:.4f}",
+        device_ms=f"{res['device_ms']:.4f}",
+        plain_ms=f"{res['plain_ms']:.4f}",
+        library_ms=f"{res['library_ms']:.4f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=b_by, body="tensor cores")
+    return res
 
 
 def prefix_suffix_positions(np, P, lens, T):
@@ -612,7 +763,7 @@ def engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,
 
     dv._decode_once = timed_decode
     names = ("cold_c", "cold_d", "share_a")
-    da_ops.launches = 0
+    da_ops.reset_counts()
     pd_ops.launches = 0
     handles = {n: dv.submit(prompts[n], max_new_tokens=max_new)
                for n in names}
@@ -620,14 +771,16 @@ def engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,
     dv.drain()              # the last step's timer appends after results
     torch.cuda.synchronize()
     da_n, pd_n = da_ops.launches, pd_ops.launches
+    da_split = da_ops.split_launches
     n_steps = len(step_s)
     assert all(len(r) == max_new for r in res.values()), "short output"
     assert pd_n == 0 and n_steps > 0 \
         and da_n == cfg.num_layers * n_steps, (da_n, pd_n, n_steps)
+    assert da_split == da_n, "a dense-view decode launch was not split"
     dv._decode_once = orig
     log("engine.dense_view", model="qwen3-1.7b(full width, 28 layers)",
         paged_decode=False, requests=len(names), decode_steps=n_steps,
-        decode_attention_launches=da_n,
+        decode_attention_launches=da_n, split_launches=da_split,
         launches_per_step=f"{da_n / n_steps:.1f}", paged_launches=pd_n,
         view_rebuilds=dv.stats.view_rebuilds,
         mean_step_ms=f"{1e3 * sum(step_s) / n_steps:.3f}",
@@ -725,15 +878,19 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
         return outs
 
     eng._decode_once, eng._admit_one = timed_decode, timed_admit
-    for ops in (fa_ops, da_ops, lru_ops, pd_ops):
-        ops.launches = 0
+    fa_ops.reset_counts()
+    da_ops.reset_counts()
+    lru_ops.launches = 0
+    pd_ops.launches = 0
     plain0 = plain_calls["n"]
     t_run = time.perf_counter()
     outs = serve(eng)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches = {"flash_attention": fa_ops.launches,
+                "flash_tensor_core": fa_ops.tensor_core_launches,
                 "decode_attention": da_ops.launches,
+                "decode_split": da_ops.split_launches,
                 "rglru_scan": lru_ops.launches,
                 "paged_decode_attention": pd_ops.launches}
     eng._decode_once, eng._admit_one = orig_decode, orig_admit
@@ -745,6 +902,10 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
         and launches["decode_attention"] > 0 \
         and launches["rglru_scan"] > 0 \
         and launches["paged_decode_attention"] == 0, launches
+    assert launches["flash_tensor_core"] == launches["flash_attention"], \
+        "a bf16 flash launch missed the tensor cores"
+    assert launches["decode_split"] == launches["decode_attention"], \
+        "a decode launch was not split"
     assert plain_calls["n"] == plain0, "a plain version ran on the CUDA path"
     assert eng.kv is None, "the dense-row path allocated pages"
     n_steps, admitted = len(step_s), len(admit_s)
@@ -1020,6 +1181,7 @@ def main() -> int:
                 torch.testing.assert_close(out[0, 0].float(), mean_v,
                                            atol=tol, rtol=tol)
     torch.cuda.synchronize()
+    kernels_flash_skipping(torch, t, rng, fa_ops, flash_attention_ref)
     log("kernels.flash", sweep="4 shapes (Dh 8..256, MQA H=10 at Dh=256) x "
         "f32/bf16 x window 0/24",
         vs_plain="ok", no_valid_key_row="mean(V)")
@@ -1051,8 +1213,10 @@ def main() -> int:
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
 
+    n_tc = fa_ops.tensor_core_launches
     err = (flash_run().float() - flash_plain().float()).abs().max().item()
     assert err < 3e-2, f"flash main shape err {err}"
+    assert fa_ops.tensor_core_launches == n_tc + 1, "missed the tensor cores"
     lib_err = (flash_library().transpose(1, 2).float()
                - flash_plain().float()).abs().max().item()
     pairs = int(mask.sum().item())
@@ -1060,20 +1224,22 @@ def main() -> int:
         + 4 * (qp.numel() + kvp.numel())
     fl_bound, fl_by = bound(fl_bytes, 4 * Dh * H * pairs, "bfloat16")
     fa_ms = time_ms(torch, flash_run)
+    fa_dev = profile_calls(torch, flash_run, 20)[1]
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
         "launches": None, "max_abs_err": err, "ms": fa_ms,
-        "plain_ms": time_ms(torch, flash_plain),
+        "device_ms": fa_dev, "plain_ms": time_ms(torch, flash_plain),
         "bound_ms": fl_bound, "bound_by": fl_by,
         "library_ms": time_ms(torch, flash_library)})
     log("kernels.flash_main", shape=f"B={B},Sq={Sq},Skv={Skv},H={H},"
         f"Hkv={Hkv},Dh={Dh},bf16", max_abs_err=f"{err:.3e}", tolerance=3e-2,
         sdpa_err=f"{lib_err:.3e}", ms=f"{fa_ms:.4f}",
+        device_ms=f"{fa_dev:.4f}",
         plain_ms=f"{kernels[-1]['plain_ms']:.4f}",
         library_ms=f"{kernels[-1]['library_ms']:.4f}",
-        bound_ms=f"{fl_bound:.5f}", bound_by=fl_by)
+        bound_ms=f"{fl_bound:.5f}", bound_by=fl_by, body="tensor cores")
 
     # fused paged decode at the engine's full-width decode step: B=8 rows
     # of 65 live pages, page 8, f32 pool, bf16 q; four layers' pools are
@@ -1165,7 +1331,8 @@ def main() -> int:
     kernels.append(kernels_decode(torch, F, t, rng, da_ops,
                                   decode_attention_ref, lse_combine, NEG_INF))
     kernels.append(kernels_scan(torch, rng, lru_ops, linear_scan_ref))
-    kernels_flash_hybrid(torch, F, t, rng, fa_ops, flash_attention_ref)
+    kernels[0]["dh256"] = kernels_flash_hybrid(torch, F, t, rng, fa_ops,
+                                               flash_attention_ref)
     kernels_shared_prefix(torch, t, rng, sp_ops, prefix_attention_ref,
                           shared_prefix_attention_ref, NEG_INF)
     torch.cuda.empty_cache()
@@ -1233,7 +1400,7 @@ def main() -> int:
 
     eng._decode_paged, eng._admit_one = timed_decode, timed_admit
 
-    fa_ops.launches = 0
+    fa_ops.reset_counts()
     pd_ops.launches = 0
     t_run = time.perf_counter()
     handles = {n: eng.submit(prompts[n], max_new_tokens=max_new)
@@ -1250,6 +1417,7 @@ def main() -> int:
     run_s = time.perf_counter() - t_run
     fa_launches, pd_launches = fa_ops.launches, pd_ops.launches
     kernels[0]["launches"] = fa_launches
+    kernels[0]["tensor_core_launches"] = fa_ops.tensor_core_launches
     kernels[1]["launches"] = pd_launches
     st = eng.stats
     assert all(len(o) == max_new for o in outs.values()), "short output"
@@ -1257,6 +1425,8 @@ def main() -> int:
     assert st.prefix_hits >= 1 and st.coalesced_requests >= 1 \
         and st.peak_batch >= 2, st.as_dict()
     assert fa_launches > 0 and pd_launches > 0, (fa_launches, pd_launches)
+    assert fa_ops.tensor_core_launches == fa_launches, \
+        "a bf16 flash launch missed the tensor cores"
     assert plain_calls["n"] == 0, "a plain version ran on the CUDA path"
     n_steps = len(step_s)
     admitted = len(admit_s)
@@ -1272,6 +1442,7 @@ def main() -> int:
         mean_step_ms=f"{1e3 * decode_s / n_steps:.3f}",
         prefill_ms_per_request=f"{1e3 * sum(admit_s) / admitted:.3f}",
         flash_launches=fa_launches,
+        flash_tensor_core_launches=fa_ops.tensor_core_launches,
         flash_launches_per_request=f"{fa_launches / admitted:.1f}",
         paged_launches=pd_launches,
         paged_launches_per_step=f"{pd_launches / n_steps:.1f}",
@@ -1391,6 +1562,7 @@ def main() -> int:
     hyb = hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine,
                         fa_ops, da_ops, lru_ops, pd_ops, plain_calls)
     kernels[2]["launches"] = hyb["decode_attention"]
+    kernels[2]["split_launches"] = hyb["decode_split"]
     kernels[3]["launches"] = hyb["rglru_scan"]
 
     # ------------------------------------------------------- 6. the report

@@ -116,12 +116,12 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.flash_attention_fwd.argtypes = [p] * 6 + [i] * 9 + [p]
+            lib.flash_attention_fwd.argtypes = [p] * 6 + [i] * 10 + [p]
             lib.flash_attention_fwd.restype = i
             lib.paged_decode_attention_fwd.argtypes = \
                 [p] * 10 + [i] * 10 + [p]
             lib.paged_decode_attention_fwd.restype = i
-            lib.decode_attention_fwd.argtypes = [p] * 8 + [i] * 7 + [p]
+            lib.decode_attention_fwd.argtypes = [p] * 9 + [i] * 8 + [p]
             lib.decode_attention_fwd.restype = i
             lib.linear_scan_fwd.argtypes = [p] * 3 + [i] * 3 + [p]
             lib.linear_scan_fwd.restype = i

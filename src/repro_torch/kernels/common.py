@@ -8,8 +8,14 @@ accumulation, a running row max ``m`` and normalizer ``l``, and the
 Masked-row semantics: a row whose every KV position is masked ends with
 ``l == 0``; ``finalize_online_softmax`` pins it to ``m = NEG_INF, l = 0``
 and a zero output row, so a log-sum-exp combine treats it as empty.
+
+``sm_count`` is the card's SM count, which the split kernels' wrappers
+plan their grids by, read once per device; ``launch_on`` hands a launch
+the device's current stream.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -52,3 +58,24 @@ def finalize_online_softmax(acc, m, l, *, normalize: bool = True):
     out = torch.where(empty[:, None], 0.0, out)
     m = torch.where(empty, NEG_INF, m)
     return out, m, l
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (cached: the
+    wrappers' host time bounds a call)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_on(device: torch.device, launch):
+    """Call ``launch(stream)`` with ``device``'s current CUDA stream as an
+    int, making the device current only where it is not already.  The raw
+    handle (read as PyTorch's generated code reads it) skips building a
+    ``torch.cuda.Stream``, and both skips save host time on every call,
+    which bounds a decode step."""
+    index = device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        return launch(stream)
+    with torch.cuda.device(device):
+        return launch(stream)

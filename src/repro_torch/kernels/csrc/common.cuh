@@ -2,10 +2,11 @@
 //
 // The CUDA counterpart of repro_torch/kernels/common.py: the finite
 // NEG_INF stand-in for -inf, the f32 online-softmax rescale step and the
-// end-of-walk finalize with the fully-masked-row pin.  The two kernels
-// differ only in how they form p (flash keeps exp(NEG_INF - m) for masked
-// keys, as its Pallas original does; paged decode zeroes masked keys, as
-// kernels/common.py does), so p is computed at the call site.
+// end-of-walk finalize with the fully-masked-row pin; besides, the
+// 16-byte unpack and the cp.async copies the kernels stage tiles with.
+// The kernels differ in how they form p (flash keeps exp(NEG_INF - m) for
+// masked keys, as its Pallas original does; the decode kernels zero masked
+// keys, as kernels/common.py does), so p is computed at the call site.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +45,20 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+__device__ __forceinline__ int warp_min_int(int x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = min(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ int warp_max_int(int x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = max(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
 // One chunk's rescale: raise the running max m to cover chunk_max and
 // return alpha = exp(m_prev - m_new), the factor acc and l are scaled by.
 __device__ __forceinline__ float online_softmax_rescale(float& m,
@@ -62,6 +77,52 @@ __device__ __forceinline__ void finalize_online_softmax(float acc, float m,
   const bool empty = l == 0.0f;
   *out = empty ? 0.0f : acc / l;
   *m_out = empty ? REPRO_NEG_INF : m;
+}
+
+// 16 bytes holding T values, as floats
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& x, float* out);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& x, float* out) {
+  out[0] = __uint_as_float(x.x);
+  out[1] = __uint_as_float(x.y);
+  out[2] = __uint_as_float(x.z);
+  out[3] = __uint_as_float(x.w);
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& x,
+                                                        float* out) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// Asynchronous global -> shared copies (sm_80+).  With pred false the
+// destination is zero-filled and nothing is read (src must still be a
+// valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred = true) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred = true) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace repro

@@ -69,28 +69,6 @@ size_t smem_bytes() {
          sizeof(int) * BK;
 }
 
-// 16 bytes holding T values, as floats
-template <typename T>
-__device__ __forceinline__ void unpack16(const uint4& x, float* out);
-template <>
-__device__ __forceinline__ void unpack16<float>(const uint4& x, float* out) {
-  out[0] = __uint_as_float(x.x);
-  out[1] = __uint_as_float(x.y);
-  out[2] = __uint_as_float(x.z);
-  out[3] = __uint_as_float(x.w);
-}
-template <>
-__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& x,
-                                                        float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
 // One block: KV head hk = blockIdx.x, keys [c*chunk, min((c+1)*chunk, P))
 // with c = blockIdx.y, query rows [t*RT, t*RT + RT) of that head with
 // t = blockIdx.z (row r = b*G + g is query head hk*G + g of row b).
@@ -177,8 +155,8 @@ prefix_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int i = tid + (b0 + u) * kThreads;
         const int j = i / VPR, d0 = (i % VPR) * VEC;
         float kk[VEC], vv[VEC];
-        unpack16<T>(kraw[u], kk);
-        unpack16<T>(vraw[u], vv);
+        repro::unpack16<T>(kraw[u], kk);
+        repro::unpack16<T>(vraw[u], vv);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
           k_s[j * KS + d0 + e] = kk[e];

@@ -4,19 +4,40 @@ For CUDA tensors it launches ``csrc/flash_attention.cu`` on the current
 stream and counts the launch in ``launches``; for CPU tensors it runs the
 plain version in ``ref.py``.  There is no fallback: a CUDA call the
 kernel cannot take raises.
+
+The kernel has two bodies and the wrapper picks one by the rule in
+``uses_tensor_cores``: bfloat16 at Dh 64, 128 or 256 runs on the tensor
+cores (``tensor_core_launches``); float32, whose tensor-core product would
+be TF32, and the small Dh of the sweeps run on the CUDA cores
+(``cuda_core_launches``).  ``launches`` counts both.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import launch_on
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the last reset (CPU calls are not counted)
+# kernel launches since the last reset (CPU calls are not counted): all of
+# them, and those of each body
 launches = 0
+tensor_core_launches = 0
+cuda_core_launches = 0
+
+
+def reset_counts() -> None:
+    global launches, tensor_core_launches, cuda_core_launches
+    launches = tensor_core_launches = cuda_core_launches = 0
+
+
+def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a launch takes the tensor-core (mma.sync) body."""
+    return dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS
 
 
 def _check(q, k, v, q_positions, kv_positions):
@@ -51,7 +72,7 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, causal=True,
 
     Returns attention output (B,Sq,H,Dh) in q's dtype.
     """
-    global launches
+    global launches, tensor_core_launches, cuda_core_launches
     _check(q, k, v, q_positions, kv_positions)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_positions=q_positions,
@@ -63,14 +84,20 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, causal=True,
     Skv, Hkv = k.shape[1], k.shape[2]
     if Dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {Dh} not in {HEAD_DIMS}")
+    tc = uses_tensor_cores(q.dtype, Dh)
+    if tc and (q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16):
+        raise ValueError("flash_attention: bf16 q, k, v must be 16-byte "
+                         "aligned")
     lib = build.library()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-            kv_positions.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, Dh,
-            int(causal), int(window), DTYPES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+    err = launch_on(q.device, lambda stream: lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+        kv_positions.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, Dh,
+        int(causal), int(window), DTYPES[q.dtype], int(tc), stream))
     build.check(err, "flash_attention_fwd")
     launches += 1
+    if tc:
+        tensor_core_launches += 1
+    else:
+        cuda_core_launches += 1
     return out

@@ -11,11 +11,10 @@ CUDA call the kernels cannot take raises.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import sm_count
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.shared_prefix_attention.ref import (
     merge_prefix_suffix, prefix_attention_ref)
@@ -73,11 +72,6 @@ def split(P: int, Hkv: int, rows: int, n_sm: int):
     return rpw, chunk
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch(q, prefix_k, prefix_v, prefix_positions):
     global launches
     if q.device.type != "cuda":
@@ -97,7 +91,7 @@ def _launch(q, prefix_k, prefix_v, prefix_positions):
     if prefix_k.data_ptr() % 16 or prefix_v.data_ptr() % 16:
         raise ValueError("prefix_attention: prefix k, v must be 16-byte "
                          "aligned")
-    rpw, chunk = split(P, Hkv, B * G, _sm_count(q.device.index))
+    rpw, chunk = split(P, Hkv, B * G, sm_count(q.device.index))
     n_part = -(-P // chunk) * Hkv * B * G
     lib = build.library()
     # one allocation for the chunks' partials (acc, m, l), one for the

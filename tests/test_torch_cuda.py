@@ -81,6 +81,102 @@ def test_flash_kernel_matches_plain(dev, B, Sq, Skv, H, Hkv, Dh, dtype,
                                rtol=tol)
 
 
+def _flash_case(dev, B, Sq, Skv, H, Hkv, Dh, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q = _t(rng.normal(size=(B, Sq, H, Dh)), dtype, dev)
+    k = _t(rng.normal(size=(B, Skv, Hkv, Dh)), dtype, dev)
+    v = _t(rng.normal(size=(B, Skv, Hkv, Dh)), dtype, dev)
+    return q, k, v, rng
+
+
+def _flash_check(dev, q, k, v, qp, kp, window, dtype, *, tensor_cores):
+    n0 = (fa_ops.tensor_core_launches, fa_ops.cuda_core_launches)
+    out = fa_ops.flash_attention(q, k, v, q_positions=qp, kv_positions=kp,
+                                 causal=True, window=window)
+    torch.cuda.synchronize()
+    n1 = (fa_ops.tensor_core_launches, fa_ops.cuda_core_launches)
+    assert n1 == ((n0[0] + 1, n0[1]) if tensor_cores
+                  else (n0[0], n0[1] + 1))
+    ref = flash_attention_ref(q, k, v, q_positions=qp, kv_positions=kp,
+                              causal=True, window=window)
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    return out
+
+
+@pytest.mark.parametrize("H,Hkv,Dh", [(16, 8, 128), (10, 1, 256),
+                                      (4, 2, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 29])
+def test_flash_unsorted_positions_with_empty_slots(dev, H, Hkv, Dh, dtype,
+                                                   window):
+    """kv_positions permuted per row with scattered -1 slots, Sq and Skv
+    no multiple of any tile: the tile-skipping rule reads min/max per tile
+    and must not assume sorted positions."""
+    B, Sq, Skv = 2, 100, 203
+    q, k, v, rng = _flash_case(dev, B, Sq, Skv, H, Hkv, Dh, dtype, 31)
+    kp = np.stack([rng.permutation(Skv) for _ in range(B)])
+    kp[rng.random(size=kp.shape) < 0.15] = -1
+    qp = np.stack([np.sort(rng.choice(Skv, Sq, replace=False))
+                   for _ in range(B)])
+    _flash_check(dev, q, k, v, torch.as_tensor(qp, dtype=torch.int32).to(dev),
+                 torch.as_tensor(kp, dtype=torch.int32).to(dev), window,
+                 dtype, tensor_cores=fa_ops.uses_tensor_cores(dtype, Dh))
+
+
+@pytest.mark.parametrize("H,Hkv,Dh", [(16, 8, 128), (10, 1, 256),
+                                      (4, 2, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_tile_mixing_rows_with_and_without_a_valid_key(dev, H, Hkv,
+                                                             Dh, dtype):
+    """Rows 3 and 40 of the first query tile have no valid key (position
+    -1 under causal) among rows that have: they must average V over all
+    Skv keys, while a window makes the early KV tiles skippable for the
+    others."""
+    B, Sq, Skv = 1, 130, 300
+    q, k, v, _ = _flash_case(dev, B, Sq, Skv, H, Hkv, Dh, dtype, 32)
+    qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32,
+                      device=dev).expand(B, Sq).contiguous()
+    qp[0, 3] = -1
+    qp[0, 40] = -1
+    kp = torch.arange(Skv, dtype=torch.int32, device=dev).expand(
+        B, Skv).contiguous()
+    out = _flash_check(dev, q, k, v, qp, kp, 48, dtype,
+                       tensor_cores=fa_ops.uses_tensor_cores(dtype, Dh))
+    mean_v = v[0].float().mean(dim=0).repeat_interleave(H // Hkv, dim=0)
+    tol = _tol(dtype)
+    for row in (3, 40):
+        torch.testing.assert_close(out[0, row].float(), mean_v, atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+def test_flash_window_skips_whole_tiles(dev, Dh):
+    """A 64-key window over 700 keys: each query tile needs two or three
+    KV tiles of eleven or more; the result must equal the plain version on
+    every row (bf16, the tensor-core body)."""
+    B, S, H, Hkv = 1, 700, 4, 2
+    q, k, v, _ = _flash_case(dev, B, S, S, H, Hkv, Dh, torch.bfloat16, 33)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(
+        B, S).contiguous()
+    _flash_check(dev, q, k, v, pos, pos, 64, torch.bfloat16,
+                 tensor_cores=True)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,Dh,window", [
+    (1, 512, 544, 16, 8, 128, 0), (1, 384, 384, 10, 1, 256, 2048)])
+def test_flash_main_shapes_take_the_tensor_cores(dev, B, Sq, Skv, H, Hkv,
+                                                 Dh, window):
+    """qwen3's chunk prefill and the hybrid's prefill, bf16."""
+    q, k, v, _ = _flash_case(dev, B, Sq, Skv, H, Hkv, Dh, torch.bfloat16, 34)
+    qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32,
+                      device=dev).expand(B, Sq).contiguous()
+    kp = torch.arange(Skv, dtype=torch.int32, device=dev).expand(
+        B, Skv).contiguous()
+    _flash_check(dev, q, k, v, qp, kp, window, torch.bfloat16,
+                 tensor_cores=True)
+
+
 def _paged_case(dev, B=3, NP=5, ps=8, H=4, Hkv=2, Dh=16, seed=11,
                 q_dtype=torch.float32, pool_dtype=torch.float32):
     """Shuffled pool, lengths ending mid-page, rows 0/1 aliasing their
@@ -233,6 +329,54 @@ def test_decode_kernel_halves_combine_to_the_whole(dev):
         window=50, return_lse=True) for lo in (0, 64)]
     torch.testing.assert_close(lse_combine(parts), whole, atol=2e-5,
                                rtol=2e-5)
+
+
+@pytest.mark.parametrize("T,H,Hkv,Dh", [
+    (40, 4, 2, 64), (100, 16, 8, 128), (517, 10, 1, 256),
+    (5000, 10, 1, 256), (1000, 2, 2, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_chunks_match_plain(dev, T, H, Hkv, Dh, dtype):
+    """One chunk (T=40), T no multiple of the chunk, many chunks of one
+    sub-tile and (T=5000) chunks of several; a run of empty slots spans
+    whole chunks of row 1."""
+    B = 3
+    q, k, v, qp, kp = _ring_case(dev, B, T, H, Hkv, Dh, dtype)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk, n_chunks = da_ops.plan_chunks(T, Dh, n_sm)
+    kp[1, chunk // 2:chunk // 2 + 3 * chunk] = -1
+    n0, s0 = da_ops.launches, da_ops.split_launches
+    out, m, l = da_ops.decode_attention(q, k, v, q_positions=qp,
+                                        kv_positions=kp, return_lse=True)
+    torch.cuda.synchronize()
+    assert da_ops.launches == n0 + 1
+    assert da_ops.split_launches == s0 + (n_chunks > 1)
+    ref, mr, lr = decode_attention_ref(q, k, v, q_positions=qp,
+                                       kv_positions=kp, return_lse=True)
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(m, mr, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(l, lr, atol=2e-5, rtol=2e-5)
+    assert torch.all(out[-1] == 0)
+    assert torch.all(m[-1] == NEG_INF) and torch.all(l[-1] == 0)
+
+
+@pytest.mark.parametrize("T,H,Hkv,Dh", [(512, 10, 1, 256),
+                                        (300, 16, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_row_is_bitwise_equal_alone_and_in_a_batch(dev, T, H, Hkv,
+                                                          Dh, dtype):
+    """The chunk plan ignores B: row 2 of a batch of eight gives the same
+    bits as the same row alone."""
+    q, k, v, qp, kp = _ring_case(dev, 8, T, H, Hkv, Dh, dtype, seed=8)
+    out, m, l = da_ops.decode_attention(q, k, v, q_positions=qp,
+                                        kv_positions=kp, window=200,
+                                        return_lse=True)
+    one = [x[2:3].contiguous() for x in (q, k, v, qp, kp)]
+    out1, m1, l1 = da_ops.decode_attention(
+        one[0], one[1], one[2], q_positions=one[3], kv_positions=one[4],
+        window=200, return_lse=True)
+    assert torch.equal(out1[0], out[2])
+    assert torch.equal(m1[0], m[2]) and torch.equal(l1[0], l[2])
 
 
 @pytest.mark.parametrize("B,S,D", [(2, 37, 70), (3, 5, 1), (1, 384, 2560)])

@@ -8,6 +8,8 @@ two frameworks sum in different orders), bf16 3e-2 (one bf16 rounding
 of the output or of the probs may land on the other side), bitwise for
 the pool contents, which are copied, never computed.
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -368,6 +370,60 @@ def test_lse_combine_of_split_halves_equals_the_whole():
     merged = lse_combine(t_parts)
     _close(merged, whole.numpy(), 2e-5)
     _close(merged, j_lse_combine(j_parts), 2e-5)
+
+
+@pytest.mark.parametrize("T", [1, 24, 64, 100, 517, 2048, 5000, 70000])
+@pytest.mark.parametrize("Dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("n_sm", [1, 4, 132])
+def test_decode_chunk_plan_covers_every_key_once(T, Dh, n_sm):
+    """The split kernel's plan: chunks [c*chunk, min((c+1)*chunk, T)) cover
+    each key once, the chunk is whole sub-tiles (so whole 16-byte vectors
+    of bf16 and f32 rows), there are at most one chunk per SM, and B is no
+    input of the plan."""
+    chunk, n_chunks = da_ops.plan_chunks(T, Dh, n_sm)
+    covered = np.zeros(T, np.int64)
+    for c in range(n_chunks):
+        covered[c * chunk:min((c + 1) * chunk, T)] += 1
+    assert np.all(covered == 1)
+    assert (n_chunks - 1) * chunk < T <= n_chunks * chunk
+    assert chunk % da_ops.sub_tile(Dh) == 0
+    for elem_bytes in (2, 4):
+        assert chunk % (da_ops.VECTOR_BYTES // elem_bytes) == 0
+    assert n_chunks <= n_sm
+    assert set(inspect.signature(da_ops.plan_chunks).parameters) == {
+        "T", "head_dim", "n_sm"}
+
+
+@pytest.mark.parametrize("T,H,Hkv,Dh,n_sm,window", [
+    (100, 4, 2, 64, 4, 0), (517, 10, 1, 256, 4, 0), (517, 10, 1, 256, 2, 90),
+    (300, 16, 8, 128, 132, 0), (2048, 2, 1, 32, 8, 700)])
+def test_decode_split_then_combine_equals_the_whole(T, H, Hkv, Dh, n_sm,
+                                                     window):
+    """A plain emulation of the split kernel: the plain version over each
+    planned chunk, combined by log-sum-exp, equals it over all T in f32,
+    with whole chunks of empty slots and a row without a valid key."""
+    q, k, v, qp, kp = _ring_inputs(4, T, H, Hkv, Dh, "float32", seed=17)
+    q, k, v, qp, kp = q[1], k[1], v[1], qp[1], kp[1]
+    chunk, n_chunks = da_ops.plan_chunks(T, Dh, n_sm)
+    kp[1, chunk // 2:chunk // 2 + 2 * chunk] = -1     # empty chunks
+    whole, m, l = da_ops.decode_attention(q, k, v, q_positions=qp,
+                                          kv_positions=kp, window=window,
+                                          return_lse=True)
+    parts = [da_ops.decode_attention(
+        q, k[:, c * chunk:(c + 1) * chunk].contiguous(),
+        v[:, c * chunk:(c + 1) * chunk].contiguous(), q_positions=qp,
+        kv_positions=kp[:, c * chunk:(c + 1) * chunk].contiguous(),
+        window=window, return_lse=True) for c in range(n_chunks)]
+    assert n_chunks > 1
+    assert any(bool(torch.all(p[2][1] == 0)) for p in parts)
+    torch.testing.assert_close(lse_combine(parts), whole, atol=1e-6,
+                               rtol=1e-6)
+    m_c = torch.stack([p[1] for p in parts]).amax(0)
+    l_c = sum(torch.exp(p[1] - m_c) * p[2] for p in parts)
+    torch.testing.assert_close(torch.where(l_c == 0, NEG_INF, m_c), m,
+                               atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(l_c, l, atol=1e-6, rtol=1e-6)
+    assert torch.all(whole[-1] == 0) and torch.all(l[-1] == 0)
 
 
 # ------------------------------------------------------ RG-LRU scan
