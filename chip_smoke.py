@@ -17,10 +17,13 @@ each:
    empty slots, rows without a valid key and skippable windows, decode
    attention over wrapped rings with empty slots, a window and a row with
    no valid key, split over one, several and many chunks, bitwise the
-   same for a row alone and in a batch of eight, the RG-LRU scan bitwise,
-   the shared-prefix kernel and op over prime and long prefixes with
-   ragged suffixes, and the main paths' full-width shapes with kernel /
-   plain / library times and the card's lower bound);
+   same for a row alone and in a batch of eight, the paged kernel split
+   over pages with each row bitwise the same alone under its own table
+   and in a batch of eight under a wider one, the RG-LRU scan bitwise
+   past its tile and block edges, the shared-prefix kernel and op over
+   prime and long prefixes with ragged suffixes, and the main paths'
+   full-width shapes with kernel / plain / library times and the card's
+   lower bound);
 3. shared prefix: the Hydragen op through its entry point at qwen3-1.7b's
    attention width, B=8 and B=32 rows on one 2048-token prefix; both of
    its kernels must launch, and in f32 it must equal today's engine route
@@ -30,10 +33,13 @@ each:
    copy-on-write partial page, a coalesced duplicate, a request admitted
    mid-decode; the kernels' launch counters must move, every bf16 flash
    launch must take the tensor cores and every decode launch the split,
-   and the plain versions must not run; the CUDA and plain decode steps
-   must agree, in bf16 and, on a float32 copy of the weights, to f32 rounding; then the
-   same model on the dense-view arm (``paged_decode=False``), which
-   decodes in the decode_attention kernel;
+   and the plain versions must not run, and the paged decode must split
+   a row's pages across blocks; the CUDA and plain decode steps must
+   agree, in bf16 and, on a float32 copy of the weights, to f32 rounding;
+   batch invariance in bf16 and on a float32 copy (logged: cuBLAS may
+   pick its GEMM by the row count); then the same model on the
+   dense-view arm (``paged_decode=False``), which decodes in the
+   decode_attention kernel;
 5. hybrid: full-width recurrentgemma-2b served through the engine's
    dense-row path (flash prefill at Dh=256, the RG-LRU scan, decode
    attention over the ring), its step profile and parity, batch
@@ -389,14 +395,21 @@ def kernels_scan(torch, rng, lru_ops, linear_scan_ref):
                             dtype=torch.float32).to(dev)
         return a, b
 
-    for shape in ((2, 37, 70), (3, 5, 1), (1, 9, 2560)):
+    # S past a 64-step tile and not a multiple of it, D not a multiple of
+    # a block's 32 channels (16-byte copies at 40, 4-byte ones at 70, 33, 1)
+    shapes = ((2, 37, 70), (3, 5, 1), (1, 9, 2560), (2, 129, 40),
+              (4, 1, 33), (2, 200, 2560))
+    for shape in shapes:
         a, b = inputs(*shape)
         assert torch.equal(lru_ops.linear_scan(a, b),
                            linear_scan_ref(a, b)), shape
     B, S, D = 1, 384, 2560
     a, b = inputs(B, S, D)
-    h = lru_ops.linear_scan(a, b)
-    assert torch.equal(h, linear_scan_ref(a, b)), "main shape"
+
+    def run():
+        return lru_ops.linear_scan(a, b)
+
+    assert torch.equal(run(), linear_scan_ref(a, b)), "main shape"
     nbytes = 3 * B * S * D * 4
     b_ms, b_by = bound(nbytes, 2 * B * S * D, "float32")
     entry = {
@@ -404,15 +417,17 @@ def kernels_scan(torch, rng, lru_ops, linear_scan_ref):
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:42",
         "launches": None, "max_abs_err": 0.0,
-        "ms": time_ms(torch, lambda: lru_ops.linear_scan(a, b), iters=50),
+        "ms": time_ms(torch, run, iters=50),
+        "device_ms": profile_calls(torch, run, 50)[1],
         "plain_ms": time_ms(torch, lambda: linear_scan_ref(a, b), iters=3,
                             warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "library_note": "no single PyTorch call computes "
                         "h_t = a_t*h_{t-1} + b_t"}
-    log("kernels.rglru_scan", bitwise_shapes="(2,37,70),(3,5,1),(1,9,2560),"
-        "(1,384,2560)", vs_plain="bitwise",
-        main_shape=f"B={B},S={S},D={D},f32", ms=f"{entry['ms']:.4f}",
+    log("kernels.rglru_scan", bitwise_shapes=",".join(
+        str(x).replace(" ", "") for x in shapes + ((B, S, D),)),
+        vs_plain="bitwise", main_shape=f"B={B},S={S},D={D},f32",
+        ms=f"{entry['ms']:.4f}", device_ms=f"{entry['device_ms']:.4f}",
         plain_ms=f"{entry['plain_ms']:.4f}", bound_ms=f"{b_ms:.5f}",
         bound_by=b_by, library_ms="none (no single PyTorch call)")
     return entry
@@ -691,6 +706,8 @@ def shared_prefix_full(torch, F, np, sp_ops, da_ops, pd_ops,
 
         times["paged_f32_pool"] = time_ms(torch, paged(pools32[0],
                                                        pools32[1]), iters=24)
+        device_ms["paged_f32_pool"] = profile_calls(
+            torch, paged(pools32[0], pools32[1]), 16)[1]
         times["paged_bf16_pool"] = time_ms(torch, paged(pools[0], pools[1]),
                                            iters=24)
         del pools32
@@ -732,7 +749,8 @@ def shared_prefix_full(torch, F, np, sp_ops, da_ops, pd_ops,
                                 "the whole op's function",
                 "op_ms": times["op"], "op_device_ms": device_ms["op"],
                 "plain_op_ms": times["op_plain"],
-                "paged_route_ms": times["paged_f32_pool"]}
+                "paged_route_ms": times["paged_f32_pool"],
+                "paged_route_device_ms": device_ms["paged_f32_pool"]}
         entry["launches"] = (entry["launches"] or 0) + n_sp
         del pools, pk, pv, sk, sv
         torch.cuda.empty_cache()
@@ -1284,28 +1302,56 @@ def main() -> int:
         return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask,
                                               enable_gqa=True)
 
+    # the split's chunk plan ignores B and the table's width: rows of
+    # several lengths, alone under their own tables and together under a
+    # table wider than every row, give the same bits
+    chunk = pd_ops.plan_chunk_pages(ps, Dh)
+    chunks_per_row = [pd_ops.row_chunks(int(n), ps, NP, chunk)
+                      for n in lens_d.tolist()]
+    var_lens = [NP * ps - 3, 2, chunk * ps, chunk * ps - 1, 20 * ps + 1,
+                -1, 3 * chunk * ps + 5, 40 * ps + 7]
+    wide = torch.as_tensor(rng.permutation(P)[:B * (NP + 7)].reshape(
+        B, NP + 7), dtype=torch.int32).to(dev)
+    var_d = torch.as_tensor(var_lens, dtype=torch.int32, device=dev)
+    s0 = pd_ops.split_launches
+    batch = pd_ops.paged_decode_attention(q, pools[0][1], pools[1][1], wide,
+                                          var_d, return_lse=True)
+    for i, n in enumerate(var_lens):
+        own = max(1, n // ps + 1)
+        one = pd_ops.paged_decode_attention(
+            q[i:i + 1].contiguous(), pools[0][1], pools[1][1],
+            wide[i:i + 1, :own].contiguous(), var_d[i:i + 1].contiguous(),
+            return_lse=True)
+        assert all(torch.equal(a[0], b[i]) for a, b in zip(one, batch)), \
+            f"paged row {i} depends on its batch"
+    assert pd_ops.split_launches > s0, "the wide table was not split"
     live = int(B * NP)                   # distinct live pages, all rows
     pd_bytes = live * ps * Hkv * Dh * 4 * 2 + q.numel() * 2 * 2 \
         + 2 * B * H * 4 + 4 * (pt_d.numel() + B) + 2 * k_new.numel() * 4 * 2
     valid_tokens = int((lens_d + 1).sum().item())
     pd_bound, pd_by = bound(pd_bytes, 4 * H * Dh * valid_tokens, "float32")
     pd_ms = time_ms(torch, pd_run, iters=40)
+    pd_dev, pd_top = profile_calls(torch, pd_run, 40)[1:]
     kernels.append({
         "name": "paged_decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
         "replaces":
             "src/repro/kernels/paged_decode_attention/kernel.py:375",
         "launches": None, "max_abs_err": pd_err, "ms": pd_ms,
-        "plain_ms": time_ms(torch, pd_plain),
+        "device_ms": pd_dev, "plain_ms": time_ms(torch, pd_plain),
         "bound_ms": pd_bound, "bound_by": pd_by,
-        "library_ms": time_ms(torch, pd_library)})
+        "library_ms": time_ms(torch, pd_library),
+        "chunk_pages": chunk})
     log("kernels.paged_main", shape=f"fused,B={B},live_pages={NP},ps={ps},"
         f"Hkv={Hkv},Dh={Dh},G={H // Hkv},q=bf16,pool=f32",
         max_abs_err=f"{pd_err:.3e}", tolerance=3e-2, ms=f"{pd_ms:.4f}",
+        device_ms=f"{pd_dev:.4f}", top_kernels_ms_per_call=json.dumps(pd_top),
         plain_ms=f"{kernels[-1]['plain_ms']:.4f}",
         library_ms=f"{kernels[-1]['library_ms']:.4f}",
         bound_ms=f"{pd_bound:.5f}", bound_by=pd_by,
-        bytes=pd_bytes, peaks=json.dumps(PEAKS_OF))
+        bytes=pd_bytes, peaks=json.dumps(PEAKS_OF), chunk_pages=chunk,
+        chunks_per_row=json.dumps(chunks_per_row),
+        row_alone_vs_in_batch_of_8_wider_table="bitwise")
 
     # the attend-only arms (kernel_variant="single"/"blocked") on the same
     # inputs; the plain version is the gather-dense reference
@@ -1400,25 +1446,35 @@ def main() -> int:
 
     eng._decode_paged, eng._admit_one = timed_decode, timed_admit
 
+    def serve(eng):
+        """Four requests and a duplicate, then one more after the first
+        decode step."""
+        handles = {n: eng.submit(prompts[n], max_new_tokens=max_new)
+                   for n in ("cold_c", "share_a", "share_b", "cold_d")}
+        handles["dup_c"] = eng.submit(prompts["cold_c"],
+                                      max_new_tokens=max_new)
+        deadline = time.monotonic() + 300
+        while eng.stats.decode_tokens < 1:
+            assert time.monotonic() < deadline, "engine made no decode step"
+            time.sleep(0.001)
+        handles["late_e"] = eng.submit(prompts["late_e"],
+                                       max_new_tokens=max_new)
+        outs = {n: h.result(timeout=600) for n, h in handles.items()}
+        eng.drain()         # the last step's timer appends after results
+        return outs
+
     fa_ops.reset_counts()
-    pd_ops.launches = 0
+    pd_ops.reset_counts()
     t_run = time.perf_counter()
-    handles = {n: eng.submit(prompts[n], max_new_tokens=max_new)
-               for n in ("cold_c", "share_a", "share_b", "cold_d")}
-    handles["dup_c"] = eng.submit(prompts["cold_c"], max_new_tokens=max_new)
-    deadline = time.monotonic() + 300
-    while eng.stats.decode_tokens < 1:
-        assert time.monotonic() < deadline, "engine made no decode step"
-        time.sleep(0.001)
-    handles["late_e"] = eng.submit(prompts["late_e"], max_new_tokens=max_new)
-    outs = {n: h.result(timeout=600) for n, h in handles.items()}
-    eng.drain()             # the last step's timer appends after results
+    outs = serve(eng)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     fa_launches, pd_launches = fa_ops.launches, pd_ops.launches
+    pd_split = pd_ops.split_launches
     kernels[0]["launches"] = fa_launches
     kernels[0]["tensor_core_launches"] = fa_ops.tensor_core_launches
     kernels[1]["launches"] = pd_launches
+    kernels[1]["split_launches"] = pd_split
     st = eng.stats
     assert all(len(o) == max_new for o in outs.values()), "short output"
     assert outs["dup_c"] == outs["cold_c"]
@@ -1427,11 +1483,12 @@ def main() -> int:
     assert fa_launches > 0 and pd_launches > 0, (fa_launches, pd_launches)
     assert fa_ops.tensor_core_launches == fa_launches, \
         "a bf16 flash launch missed the tensor cores"
+    assert pd_split > 0, "no paged decode launch was split"
     assert plain_calls["n"] == 0, "a plain version ran on the CUDA path"
     n_steps = len(step_s)
     admitted = len(admit_s)
     log("engine.run", model="qwen3-1.7b(full width, 28 layers)",
-        requests=len(handles), admitted=admitted, tokens_each=max_new,
+        requests=len(outs), admitted=admitted, tokens_each=max_new,
         prefix_hits=st.prefix_hits, tokens_reused=st.tokens_reused,
         coalesced=st.coalesced_requests, peak_batch=st.peak_batch,
         admission_waves=st.admission_waves, decode_steps=n_steps,
@@ -1444,7 +1501,7 @@ def main() -> int:
         flash_launches=fa_launches,
         flash_tensor_core_launches=fa_ops.tensor_core_launches,
         flash_launches_per_request=f"{fa_launches / admitted:.1f}",
-        paged_launches=pd_launches,
+        paged_launches=pd_launches, paged_split_launches=pd_split,
         paged_launches_per_step=f"{pd_launches / n_steps:.1f}",
         max_memory_allocated_gib=
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
@@ -1548,6 +1605,25 @@ def main() -> int:
     log("engine.batch_invariance", request="cold_c", batched_vs_alone=
         "equal" if alone == outs["cold_c"] else "differ",
         first_differing_token=first_difference(alone, outs["cold_c"]))
+    # the same on a float32 copy of the weights: the attention kernels'
+    # bits do not depend on the batch, but cuBLAS may pick its GEMM by the
+    # batch's row count, so the result is logged, not asserted
+    e32 = InferenceEngine(cfg.replace(dtype="float32"), seed=0)
+    e32.load(eng.model.state_dict())                   # bf16 -> f32, exact
+    outs32 = serve(e32)
+    alone32 = e32.generate([prompts["cold_c"]], max_new_tokens=max_new)[0]
+    assert all(len(o) == max_new for o in outs32.values()), "short output"
+    log("engine.batch_invariance", dtype="float32", request="cold_c",
+        peak_batch=e32.stats.peak_batch, batched_vs_alone=
+        "equal" if alone32 == outs32["cold_c"] else "differ",
+        first_differing_token=first_difference(alone32, outs32["cold_c"]),
+        tokens_equal_bf16_run=json.dumps(
+            {n: outs32[n] == outs[n] for n in outs}))
+    e32.shutdown()
+    e32.unload()
+    del e32
+    gc.collect()
+    torch.cuda.empty_cache()
     eng.shutdown()
 
     engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,

@@ -119,7 +119,7 @@ def library() -> ctypes.CDLL:
             lib.flash_attention_fwd.argtypes = [p] * 6 + [i] * 10 + [p]
             lib.flash_attention_fwd.restype = i
             lib.paged_decode_attention_fwd.argtypes = \
-                [p] * 10 + [i] * 10 + [p]
+                [p] * 11 + [i] * 11 + [p]
             lib.paged_decode_attention_fwd.restype = i
             lib.decode_attention_fwd.argtypes = [p] * 9 + [i] * 8 + [p]
             lib.decode_attention_fwd.restype = i

@@ -3,7 +3,8 @@
 // The CUDA counterpart of repro_torch/kernels/common.py: the finite
 // NEG_INF stand-in for -inf, the f32 online-softmax rescale step and the
 // end-of-walk finalize with the fully-masked-row pin; besides, the
-// 16-byte unpack and the cp.async copies the kernels stage tiles with.
+// 16-byte unpack, the cp.async copies the kernels stage tiles with, and
+// the host's once-per-device opt-in to more than 48 KB of shared memory.
 // The kernels differ in how they form p (flash keeps exp(NEG_INF - m) for
 // masked keys, as its Pallas original does; the decode kernels zero masked
 // keys, as kernels/common.py does), so p is computed at the call site.
@@ -123,6 +124,23 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Let a kernel take more than 48 KB of dynamic shared memory.  The
+// attribute is set once per device and size, not on every launch: a
+// decode step's host time bounds its kernels.  ``allowed`` is a static
+// array of the caller's, one for each kernel.
+template <typename K>
+cudaError_t allow_smem(K kern, size_t bytes, size_t (&allowed)[8]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 8 && bytes <= allowed[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess && dev < 8) allowed[dev] = bytes;
+  return e;
 }
 
 }  // namespace repro

@@ -10,7 +10,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import launch_on
 from repro_torch.kernels.rglru_scan.ref import linear_scan_ref
+
+MAX_BATCH = 65535               # the grid's second dimension
 
 # kernel launches since the last reset (CPU calls are not counted)
 launches = 0
@@ -35,12 +38,12 @@ def linear_scan(a, b):
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("linear_scan: inputs must be contiguous")
     B, S, D = a.shape
+    if B > MAX_BATCH:
+        raise ValueError(f"linear_scan: batch {B} exceeds {MAX_BATCH}")
     lib = build.library()
     h = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        err = lib.linear_scan_fwd(a.data_ptr(), b.data_ptr(), h.data_ptr(),
-                                  B, S, D,
-                                  torch.cuda.current_stream().cuda_stream)
+    err = launch_on(a.device, lambda stream: lib.linear_scan_fwd(
+        a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D, stream))
     build.check(err, "linear_scan_fwd")
     launches += 1
     return h

@@ -276,6 +276,121 @@ def test_fused_main_path_shape(dev):
     assert torch.equal(k_out, ks)
 
 
+def _split_case(dev, B, n_pages, ps, H, Hkv, Dh, lens, q_dtype,
+                pool_dtype, seed=23):
+    """Rows of the given lengths over a shuffled pool whose table is
+    ``n_pages`` wide; rows 0 and 1 alias their first two pages."""
+    rng = np.random.default_rng(seed)
+    P = B * n_pages + 4
+    q = _t(rng.normal(size=(B, H, Dh)), q_dtype, dev)
+    kp = _t(rng.normal(size=(P, ps, Hkv, Dh)), pool_dtype, dev)
+    vp = _t(rng.normal(size=(P, ps, Hkv, Dh)), pool_dtype, dev)
+    pt = np.asarray(rng.permutation(P)[:B * n_pages].reshape(B, n_pages),
+                    np.int32)
+    pt[1, :2] = pt[0, :2]
+    k_new = _t(rng.normal(size=(B, Hkv, Dh)), pool_dtype, dev)
+    v_new = _t(rng.normal(size=(B, Hkv, Dh)), pool_dtype, dev)
+    return (q, kp, vp, torch.as_tensor(pt).to(dev),
+            torch.as_tensor(np.asarray(lens, np.int32)).to(dev), k_new,
+            v_new)
+
+
+@pytest.mark.parametrize("ps,Dh", [(8, 128), (8, 16), (16, 64)])
+@pytest.mark.parametrize("q_dtype,pool_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_paged_split_single_blocked_fused_bitwise(dev, ps, Dh, q_dtype,
+                                                  pool_dtype):
+    """Chunks of several pages: the write slot on the first page of a
+    chunk (row 0), on its last page (row 1), in a row shorter than one
+    chunk (row 2), and a padding row; single == blocked == fused after
+    the scatter, bit for bit, and each call is split."""
+    cp = pd_ops.plan_chunk_pages(ps, Dh)
+    n_pages = 3 * cp + 1
+    lens = [cp * ps + 3, (2 * cp - 1) * ps + ps - 1, ps + 2, -1]
+    q, kp, vp, pt, ln, k_new, v_new = _split_case(
+        dev, 4, n_pages, ps, 4, 2, Dh, lens, q_dtype, pool_dtype)
+    s0 = pd_ops.split_launches
+    single, m, l = pd_ops.paged_decode_attention(
+        q, kp, vp, pt, ln, variant="single", return_lse=True)
+    ref, mr, lr = paged_decode_attention_ref(q, kp, vp, pt, ln,
+                                             return_lse=True)
+    tol = _tol(q_dtype)
+    torch.testing.assert_close(single.float(), ref.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(m, mr, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(l, lr, atol=2e-5, rtol=2e-5)
+    assert torch.all(single[-1] == 0)
+    assert torch.all(m[-1] == NEG_INF) and torch.all(l[-1] == 0)
+    for ppb in (2, 3, 4, 8):
+        blocked = pd_ops.paged_decode_attention(
+            q, kp, vp, pt, ln, variant="blocked", pages_per_block=ppb)
+        assert torch.equal(blocked, single), ppb
+        ks, vs = scatter_append_ref(kp.clone(), vp.clone(), pt, ln, k_new,
+                                    v_new)
+        base, mb, lb = pd_ops.paged_decode_attention(
+            q, ks, vs, pt, ln, variant="single", return_lse=True)
+        kf, vf = kp.clone(), vp.clone()
+        fused, mf, lf, _, _ = pd_ops.fused_paged_decode_attention(
+            q, kf, vf, pt, ln, k_new, v_new, pages_per_block=ppb,
+            return_lse=True)
+        assert torch.equal(fused, base) and torch.equal(mf, mb) \
+            and torch.equal(lf, lb), ppb
+        assert torch.equal(kf, ks) and torch.equal(vf, vs), ppb
+    torch.cuda.synchronize()
+    assert pd_ops.split_launches - s0 == 1 + 4 * 3
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("variant", ["single", "blocked"])
+def test_paged_row_is_bitwise_equal_alone_and_in_a_batch(dev, q_dtype,
+                                                         pool_dtype,
+                                                         variant):
+    """The chunk plan ignores B and the table's width: each row of a
+    batch of eight under a table wider than every row gives the bits of
+    the same row alone under its own table."""
+    ps, Dh = 8, 128
+    cp = pd_ops.plan_chunk_pages(ps, Dh)
+    lens = [65 * ps - 3, 2, cp * ps, cp * ps - 1, 3 * cp * ps + 5, -1,
+            20 * ps + 1, 40 * ps + 7]
+    q, kp, vp, pt, ln, _, _ = _split_case(
+        dev, 8, 70, ps, 16, 8, Dh, lens, q_dtype, pool_dtype, seed=29)
+    out, m, l = pd_ops.paged_decode_attention(
+        q, kp, vp, pt, ln, variant=variant, return_lse=True)
+    for i, n in enumerate(lens):
+        own = max(1, n // ps + 1)
+        o1, m1, l1 = pd_ops.paged_decode_attention(
+            q[i:i + 1].contiguous(), kp, vp, pt[i:i + 1, :own].contiguous(),
+            ln[i:i + 1].contiguous(), variant=variant, return_lse=True)
+        assert torch.equal(o1[0], out[i]), i
+        assert torch.equal(m1[0], m[i]) and torch.equal(l1[0], l[i]), i
+
+
+@pytest.mark.parametrize("n_pages", [5, 20, 70])
+def test_paged_split_padding_row_writes_nothing(dev, n_pages):
+    """A padding row's blocks, split or not, write nothing and its output
+    is pinned; its neighbours' appends land."""
+    lens = [n_pages * 8 - 9, -1, 11]
+    q, kp, vp, pt, ln, _, _ = _split_case(
+        dev, 3, n_pages, 8, 4, 2, 16, lens, torch.float32, torch.float32)
+    k_new = torch.full((3, 2, 16), 1e6, device=dev)
+    v_new = torch.full((3, 2, 16), -1e6, device=dev)
+    ks, vs = scatter_append_ref(kp.clone(), vp.clone(), pt, ln, k_new,
+                                v_new)
+    out, m, l, k_out, v_out = pd_ops.fused_paged_decode_attention(
+        q, kp, vp, pt, ln, k_new, v_new, return_lse=True)
+    assert torch.equal(k_out, ks) and torch.equal(v_out, vs)
+    assert int((k_out == 1e6).sum()) == 2 * 2 * 16
+    for pg in pt[1].tolist():
+        if pg not in pt[0].tolist() + pt[2].tolist():
+            assert not torch.any(k_out[pg] == 1e6)
+            assert not torch.any(v_out[pg] == -1e6)
+    assert torch.all(out[1] == 0)
+    assert torch.all(m[1] == NEG_INF) and torch.all(l[1] == 0)
+
+
 def _ring_case(dev, B, T, H, Hkv, Dh, dtype, seed=3):
     """A ring cache of T slots, position p in slot p % T: row 0 has
     wrapped (its newest position is past T), row 1 has not (its tail
@@ -391,6 +506,20 @@ def test_scan_kernel_equals_plain_bitwise(dev, B, S, D):
     torch.cuda.synchronize()
     assert lru_ops.launches == n0 + 1
     assert torch.equal(h, linear_scan_ref(a, b))
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 100, 40), (3, 129, 70), (1, 1, 2560),
+                                   (4, 1, 33), (2, 200, 2560), (1, 64, 16)])
+def test_scan_past_tile_and_block_edges_equals_plain_bitwise(dev, B, S, D):
+    """S not a multiple of the 64-step tile, D not a multiple of a block's
+    32 channels (16-byte copies at D = 40 and 16, 4-byte ones at 70 and
+    33), B > 1 and S = 1."""
+    rng = np.random.default_rng(B * S + D)
+    a = torch.as_tensor(rng.uniform(0.5, 1.0, size=(B, S, D)),
+                        dtype=torch.float32).to(dev)
+    b = torch.as_tensor(rng.normal(size=(B, S, D)),
+                        dtype=torch.float32).to(dev)
+    assert torch.equal(lru_ops.linear_scan(a, b), linear_scan_ref(a, b))
 
 
 def _prefix_case(dev, B, H, Hkv, Dh, P, Ts, dtype, seed=21):

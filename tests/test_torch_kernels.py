@@ -302,6 +302,122 @@ def test_fused_padding_row_writes_nothing_and_is_pinned():
     assert torch.all(m[-1] == np.float32(NEG_INF)) and torch.all(l[-1] == 0)
 
 
+@pytest.mark.parametrize("page_size", [1, 2, 8, 16, 48])
+@pytest.mark.parametrize("head_dim", list(pd_ops.HEAD_DIMS))
+def test_paged_chunk_plan_covers_every_page_once(page_size, head_dim):
+    """The split kernel's plan: a row's chunks [c*chunk, (c+1)*chunk) of
+    whole pages cover each of its live pages once, whatever its length
+    and the table's width; the stage of the copy ring holds whole pages
+    within a chunk; B, the table's width and the lengths are no input of
+    the plan."""
+    chunk = pd_ops.plan_chunk_pages(page_size, head_dim)
+    assert chunk >= 1 and isinstance(chunk, int)
+    for n_pages in (1, 3, chunk, chunk + 1, 5 * chunk + 2):
+        for length in range(-1, (n_pages + 2) * page_size, 3):
+            live = 0 if length < 0 else min(length // page_size + 1,
+                                             n_pages)
+            n_chunks = pd_ops.row_chunks(length, page_size, n_pages, chunk)
+            covered = np.zeros(n_pages, np.int64)
+            for c in range(n_chunks):
+                covered[c * chunk:min((c + 1) * chunk, live)] += 1
+            assert np.all(covered[:live] == 1) and np.all(covered[live:] == 0)
+            assert n_chunks <= -(-n_pages // chunk)
+    for ppb in pd_ops.PAGES_PER_BLOCK:
+        for elem in (2, 4):
+            stage = pd_ops.stage_pages(ppb, page_size, head_dim, elem, chunk)
+            assert 1 <= stage <= max(1, min(ppb, chunk))
+    assert set(inspect.signature(pd_ops.plan_chunk_pages).parameters) == {
+        "page_size", "head_dim"}
+
+
+def _paged_split_inputs(B, n_pages, ps, H, Hkv, Dh, lens, dtype, seed):
+    """Rows of the given lengths over a shuffled pool under a table
+    ``n_pages`` wide; rows 0 and 1 alias their first three pages."""
+    rng = np.random.default_rng(seed)
+    P = B * n_pages + 3
+    q = _pair(rng.normal(size=(B, H, Dh)), dtype)
+    kp = _pair(rng.normal(size=(P, ps, Hkv, Dh)), dtype)
+    vp = _pair(rng.normal(size=(P, ps, Hkv, Dh)), dtype)
+    pt = np.asarray(rng.permutation(P)[:B * n_pages].reshape(B, n_pages),
+                    np.int32)
+    pt[1, :3] = pt[0, :3]
+    return q, kp, vp, _ints(pt), _ints(lens)
+
+
+def _paged_split_emulation(q, kp, vp, pt, lens, chunk):
+    """The plain version over each planned chunk of pages (positions
+    counted from the chunk's first page), combined by log-sum-exp."""
+    ps = kp.shape[1]
+    n_split = -(-pt.shape[1] // chunk)
+    parts = []
+    for c in range(n_split):
+        sub = pt[:, c * chunk:(c + 1) * chunk].contiguous()
+        parts.append(pd_ops.paged_decode_attention(
+            q, kp, vp, sub, (lens - c * chunk * ps).to(torch.int32),
+            return_lse=True))
+    return parts
+
+
+# (B, n_pages, page, H, Hkv, Dh, lengths): a padding row, a row shorter
+# than one chunk, rows 0/1 sharing prefix pages, tables wider than every
+# row
+PAGED_SPLIT_CASES = [
+    (4, 20, 8, 4, 2, 16, [8 * 15 + 3, 8 * 9, 5, -1]),
+    (5, 12, 16, 8, 2, 64, [16 * 11 + 15, 16 * 4 + 1, 16 * 3 - 1, -1, 0]),
+    (3, 9, 8, 4, 1, 256, [8 * 7 + 2, -1, 1]),
+    (4, 70, 8, 16, 8, 128, [8 * 65 - 3, 8 * 8, 8 * 8 - 1, -1]),
+]
+
+
+@pytest.mark.parametrize("B,n_pages,ps,H,Hkv,Dh,lens", PAGED_SPLIT_CASES)
+def test_paged_split_then_combine_equals_the_whole(B, n_pages, ps, H, Hkv,
+                                                   Dh, lens):
+    """A plain emulation of the split kernel, the plain version per
+    planned chunk combined by log-sum-exp, equals the whole row in f32."""
+    q, kp, vp, pt, ln = _paged_split_inputs(B, n_pages, ps, H, Hkv, Dh,
+                                            lens, "float32", seed=B + Dh)
+    chunk = pd_ops.plan_chunk_pages(ps, Dh)
+    whole, m, l = pd_ops.paged_decode_attention(q[1], kp[1], vp[1], pt[1],
+                                                ln[1], return_lse=True)
+    parts = _paged_split_emulation(q[1], kp[1], vp[1], pt[1], ln[1], chunk)
+    counts = [pd_ops.row_chunks(n, ps, n_pages, chunk) for n in lens]
+    assert max(counts) > 1 and min(counts) == 0
+    assert any(0 < n <= 1 for n in counts)
+    torch.testing.assert_close(lse_combine(parts), whole, atol=1e-6,
+                               rtol=1e-6)
+    m_c = torch.stack([p[1] for p in parts]).amax(0)
+    l_c = sum(torch.exp(p[1] - m_c) * p[2] for p in parts)
+    torch.testing.assert_close(torch.where(l_c == 0, NEG_INF, m_c), m,
+                               atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(l_c, l, atol=1e-6, rtol=1e-6)
+    # chunks past a row's last page hold nothing
+    for b, n in enumerate(counts):
+        for c, p in enumerate(parts):
+            assert bool(p[2][b].eq(0).all()) == (c >= n), (b, c)
+    for b, n in enumerate(lens):
+        assert bool(torch.all(whole[b] == 0)) == (n < 0), b
+
+
+@pytest.mark.parametrize("B,n_pages,ps,H,Hkv,Dh,lens", PAGED_SPLIT_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_split_emulation_matches_jax_ref(B, n_pages, ps, H, Hkv, Dh,
+                                               lens, dtype):
+    """The split's emulation and the whole against the JAX reference on
+    the same numpy inputs."""
+    q, kp, vp, pt, ln = _paged_split_inputs(B, n_pages, ps, H, Hkv, Dh,
+                                            lens, dtype, seed=B + Dh)
+    chunk = pd_ops.plan_chunk_pages(ps, Dh)
+    ref, mr, lr = j_paged_ref(q[0], kp[0], vp[0], pt[0], ln[0],
+                              return_lse=True)
+    parts = _paged_split_emulation(q[1], kp[1], vp[1], pt[1], ln[1], chunk)
+    _close(lse_combine(parts), ref, _tol(dtype))
+    whole, m, l = pd_ops.paged_decode_attention(q[1], kp[1], vp[1], pt[1],
+                                                ln[1], return_lse=True)
+    _close(whole, ref, _tol(dtype))
+    _close(m, mr, 2e-5)
+    _close(l, lr, 2e-5)
+
+
 # ------------------------------------------------ decode over a ring cache
 
 def _ring_inputs(B, T, H, Hkv, Dh, dtype, seed=5):
