@@ -26,8 +26,10 @@ each:
    lower bound);
 3. shared prefix: the Hydragen op through its entry point at qwen3-1.7b's
    attention width, B=8 and B=32 rows on one 2048-token prefix; both of
-   its kernels must launch, and in f32 it must equal today's engine route
-   (the paged kernel over shared prefix pages), which is timed beside it;
+   its kernels must launch, the prefix kernel on the tensor cores (it
+   merges the suffix pass itself), and in f32 it must equal today's
+   engine route (the paged kernel over shared prefix pages), which is
+   timed beside it, as is SDPA over the same function;
 4. engine: full-width qwen3-1.7b (random weights from a seed) served by
    the continuous-batching ``InferenceEngine``: prefix sharing with a
    copy-on-write partial page, a coalesced duplicate, a request admitted
@@ -107,19 +109,23 @@ def profile_calls(torch, fn, n: int):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name[:60]
-            per_kernel[name] = per_kernel.get(name, 0.0) \
-                + e.time_range.elapsed_us()
+    # a session now and then reports no device events: take the next one
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        per_kernel = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name[:60]
+                per_kernel[name] = per_kernel.get(name, 0.0) \
+                    + e.time_range.elapsed_us()
+        if per_kernel:
+            break
     busy_us = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     return (1e3 * wall / n, busy_us / 1e3 / n,
@@ -602,15 +608,19 @@ def shared_prefix_full(torch, F, np, sp_ops, da_ops, pd_ops,
                             axis=1).astype(np.int32)
         pt_d = torch.as_tensor(pt).to(dev)
 
-        # the main path: one call of the op; both kernels must launch
-        sp_ops.launches = 0
-        da_ops.launches = 0
+        # the main path: one call of the op; both kernels must launch, the
+        # prefix kernel on the tensor cores (it merges the suffix itself)
+        sp_ops.reset_counts()
+        da_ops.reset_counts()
         out = sp_ops.shared_prefix_attention(
             q, pk[0], pv[0], sk[0], sv[0], q_positions=qp_d,
             suffix_positions=sp_d)
         torch.cuda.synchronize()
         n_sp, n_da = sp_ops.launches, da_ops.launches
+        n_tc, n_cc = sp_ops.tensor_core_launches, sp_ops.cuda_core_launches
         assert (n_sp, n_da) == (1, 1), (n_sp, n_da)
+        assert (n_tc, n_cc) == (1, 0), ("bf16 prefix launch off the tensor "
+                                        "cores", n_tc, n_cc)
         assert out.shape == (B, H, Dh) and bool(torch.isfinite(out).all())
         ref = shared_prefix_attention_ref(q, pk[0], pv[0], sk[0], sv[0],
                                           q_positions=qp_d,
@@ -691,6 +701,7 @@ def shared_prefix_full(torch, F, np, sp_ops, da_ops, pd_ops,
 
         lib_err = (library(0)[:, :, 0].float() - ref.float()).abs().max()
         times["library"] = time_ms(torch, library, iters=48)
+        device_ms["library"] = profile_calls(torch, library, 16)[1]
         del kcat, vcat
         # today's engine route over the same values: the paged kernel
         # (attend only, 4 pages per block) over an f32 pool, as the engine
@@ -721,6 +732,7 @@ def shared_prefix_full(torch, F, np, sp_ops, da_ops, pd_ops,
             shape=f"B={B},P={P},T={T},H={H},Hkv={Hkv},Dh={Dh},bf16",
             suffix_lens=f"{int(lens.min())}..{int(lens.max())}",
             prefix_launches=n_sp, decode_attention_launches=n_da,
+            prefix_tensor_core_launches=n_tc, prefix_cuda_core_launches=n_cc,
             op_max_abs_err=f"{op_err:.3e}",
             kernel_max_abs_err_acc_m_l=json.dumps(
                 [float(f"{e:.3e}") for e in k_errs]),
@@ -739,19 +751,32 @@ def shared_prefix_full(torch, F, np, sp_ops, da_ops, pd_ops,
                     "src/repro_torch/kernels/csrc/shared_prefix_attention.cu",
                 "replaces":
                     "src/repro/kernels/shared_prefix_attention/kernel.py:65",
-                "launches": None, "max_abs_err": k_errs[0],
+                "launches": None, "tensor_core_launches": 0,
+                "cuda_core_launches": 0, "max_abs_err": k_errs[0],
                 "ms": times["prefix_kernel"],
                 "device_ms": device_ms["prefix_kernel"],
                 "plain_ms": times["prefix_plain"],
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": times["library"],
+                "library_device_ms": device_ms["library"],
                 "library_note": "SDPA over the broadcast [prefix; suffix], "
-                                "the whole op's function",
+                                "the whole op's function: set it against "
+                                "op_ms and op_device_ms",
                 "op_ms": times["op"], "op_device_ms": device_ms["op"],
                 "plain_op_ms": times["op_plain"],
                 "paged_route_ms": times["paged_f32_pool"],
                 "paged_route_device_ms": device_ms["paged_f32_pool"]}
+        else:
+            entry["b32"] = {
+                "ms": times["prefix_kernel"],
+                "device_ms": device_ms["prefix_kernel"],
+                "bound_ms": b_ms, "max_abs_err": k_errs[0],
+                "op_ms": times["op"], "op_device_ms": device_ms["op"],
+                "library_ms": times["library"],
+                "library_device_ms": device_ms["library"]}
         entry["launches"] = (entry["launches"] or 0) + n_sp
+        entry["tensor_core_launches"] += n_tc
+        entry["cuda_core_launches"] += n_cc
         del pools, pk, pv, sk, sv
         torch.cuda.empty_cache()
     return entry

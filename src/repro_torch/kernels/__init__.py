@@ -15,7 +15,8 @@ plain PyTorch version of the same function) and the CUDA source under
                             cache, returning the log-sum-exp state too
 * shared_prefix_attention — Hydragen-style: one shared prefix against all
                             B*G query rows of a KV head (P split across
-                            blocks, chunks combined in CUDA), merged with
-                            a decode-attention pass over each row's suffix
+                            blocks, bf16 on the tensor cores), merged in
+                            the kernel with a decode-attention pass over
+                            each row's suffix
 * rglru_scan              — the RG-LRU linear recurrence h = a*h + b
 """

@@ -125,7 +125,7 @@ def library() -> ctypes.CDLL:
             lib.decode_attention_fwd.restype = i
             lib.linear_scan_fwd.argtypes = [p] * 3 + [i] * 3 + [p]
             lib.linear_scan_fwd.restype = i
-            lib.prefix_attention_fwd.argtypes = [p] * 10 + [i] * 8 + [p]
+            lib.prefix_attention_fwd.argtypes = [p] * 13 + [i] * 8 + [p]
             lib.prefix_attention_fwd.restype = i
             _lib = lib
         return _lib

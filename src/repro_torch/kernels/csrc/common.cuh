@@ -3,8 +3,11 @@
 // The CUDA counterpart of repro_torch/kernels/common.py: the finite
 // NEG_INF stand-in for -inf, the f32 online-softmax rescale step and the
 // end-of-walk finalize with the fully-masked-row pin; besides, the
-// 16-byte unpack, the cp.async copies the kernels stage tiles with, and
-// the host's once-per-device opt-in to more than 48 KB of shared memory.
+// 16-byte unpack, the cp.async copies the kernels stage tiles with, the
+// tensor-core pieces of the FA2 register layout (the XOR swizzle of bf16
+// tiles, ldmatrix, mma.sync.m16n8k16) that the flash and shared-prefix
+// bodies share, and the host's once-per-device opt-in to more than 48 KB
+// of shared memory.
 // The kernels differ in how they form p (flash keeps exp(NEG_INF - m) for
 // masked keys, as its Pallas original does; the decode kernels zero masked
 // keys, as kernels/common.py does), so p is computed at the call site.
@@ -12,6 +15,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 // Finite stand-in for -inf: exp(NEG_INF - NEG_INF) stays defined (== 1).
 #define REPRO_NEG_INF (-1e30f)
@@ -124,6 +128,45 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// element offset of 16-byte chunk c of row r in a [rows][DH] bf16 tile:
+// chunks XOR-swizzled by r % 8, so ldmatrix's eight rows hit eight banks
+template <int DH>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * DH + ((c ^ (r & 7)) << 3);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // Let a kernel take more than 48 KB of dynamic shared memory.  The

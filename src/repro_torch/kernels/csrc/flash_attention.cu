@@ -239,44 +239,11 @@ size_t smem_bytes(int n_tiles) {
          sizeof(int) * (kGroups * 2 * (size_t)BN + 3 * (size_t)n_tiles);
 }
 
-// element offset of 16-byte chunk c of row r in a [rows][DH] bf16 tile:
-// chunks XOR-swizzled by r % 8, so ldmatrix's eight rows hit eight banks
-template <int DH>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * DH + ((c ^ (r & 7)) << 3);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
+using repro::ldsm_x4;
+using repro::ldsm_x4_t;
+using repro::mma16816;
+using repro::pack_bf16;
+using repro::swz;
 
 // a barrier over one warpgroup's 128 threads (ids 1, 2; 0 is the block's)
 __device__ __forceinline__ void group_sync(int wg) {

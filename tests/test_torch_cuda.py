@@ -595,6 +595,74 @@ def test_shared_prefix_op_matches_plain(dev, H, Hkv, Dh, P, dtype):
     torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_kernel_body_by_dtype(dev, Dh, dtype):
+    """Every bf16 launch takes the tensor-core body, every f32 launch the
+    CUDA-core body; the op's prefix launch counts the same way."""
+    q, pk, pv, sk, sv, qp, sp = _prefix_case(dev, 4, 8, 2, Dh, 300, 40,
+                                             dtype)
+    before = (sp_ops.tensor_core_launches, sp_ops.cuda_core_launches)
+    sp_ops.prefix_attention(q, pk, pv,
+                            torch.arange(300, dtype=torch.int32, device=dev))
+    sp_ops.shared_prefix_attention(q, pk, pv, sk, sv, q_positions=qp,
+                                   suffix_positions=sp)
+    torch.cuda.synchronize()
+    tc = int(sp_ops.uses_tensor_cores(dtype))
+    assert (sp_ops.tensor_core_launches - before[0],
+            sp_ops.cuda_core_launches - before[1]) == (2 * tc, 2 - 2 * tc)
+
+
+@pytest.mark.parametrize("H,Hkv,Dh", [(16, 8, 128), (10, 1, 256),
+                                      (16, 1, 64)])
+@pytest.mark.parametrize("P", [131, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_row_is_bitwise_equal_alone_and_in_a_batch(dev, H, Hkv, Dh,
+                                                          P, dtype):
+    """The chunk plan ignores B and mma rows are independent: row 2 of a
+    batch of eight gives the same (acc, m, l) and op output bits as the
+    same row alone (at G=16 the batch spans two row tiles of 64)."""
+    q, pk, pv, sk, sv, qp, sp = _prefix_case(dev, 8, H, Hkv, Dh, P, 70,
+                                             dtype, seed=5)
+    pos = torch.arange(P, dtype=torch.int32, device=dev)
+    pos[::5] = -1
+    acc, m, l = sp_ops.prefix_attention(q, pk, pv, pos)
+    out = sp_ops.shared_prefix_attention(q, pk, pv, sk, sv, q_positions=qp,
+                                         suffix_positions=sp)
+    one = [x[2:3].contiguous() for x in (q, sk, sv, qp, sp)]
+    acc1, m1, l1 = sp_ops.prefix_attention(one[0], pk, pv, pos)
+    out1 = sp_ops.shared_prefix_attention(one[0], pk, pv, one[1], one[2],
+                                          q_positions=one[3],
+                                          suffix_positions=one[4])
+    assert torch.equal(acc1[0], acc[2])
+    assert torch.equal(m1[0], m[2]) and torch.equal(l1[0], l[2])
+    assert torch.equal(out1[0], out[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shared_prefix_op_is_two_kernels_and_never_the_plain_merge(
+        dev, dtype, monkeypatch):
+    """On the card the op is the decode-attention launch over the suffix
+    and one prefix launch that merges the two; the plain merge never
+    runs."""
+    def plain_merge(*args, **kwargs):
+        raise AssertionError("the plain merge ran on CUDA tensors")
+
+    monkeypatch.setattr(sp_ops, "merge_prefix_suffix", plain_merge)
+    q, pk, pv, sk, sv, qp, sp = _prefix_case(dev, 8, 16, 8, 128, 2048, 512,
+                                             dtype)
+    n0, d0 = sp_ops.launches, da_ops.launches
+    out = sp_ops.shared_prefix_attention(q, pk, pv, sk, sv, q_positions=qp,
+                                         suffix_positions=sp)
+    torch.cuda.synchronize()
+    assert (sp_ops.launches, da_ops.launches) == (n0 + 1, d0 + 1)
+    ref = shared_prefix_attention_ref(q, pk, pv, sk, sv, q_positions=qp,
+                                      suffix_positions=sp)
+    tol = {"atol": 2e-5, "rtol": 2e-5} if dtype == torch.float32 \
+        else {"atol": 2e-3, "rtol": 8e-3}
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
 def test_prefix_kernel_refuses_what_it_cannot_take(dev):
     q, pk, pv, *_ = _prefix_case(dev, 3, 8, 8, 32, 40, 4, torch.float32)
     pos = torch.arange(40, dtype=torch.int32, device=dev)

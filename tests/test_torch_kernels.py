@@ -53,6 +53,8 @@ from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import linear_scan_ref  # noqa: E402
 from repro_torch.kernels.shared_prefix_attention import (  # noqa: E402
     ops as sp_ops)
+from repro_torch.kernels.shared_prefix_attention.ref import (  # noqa: E402
+    merge_prefix_suffix, prefix_attention_ref)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -153,6 +155,7 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
                             kv_positions=kpr[1])
     lru_ops.linear_scan(torch.ones(1, 3, 4), torch.ones(1, 3, 4))
     n_sp = sp_ops.launches
+    n_body = (sp_ops.tensor_core_launches, sp_ops.cuda_core_launches)
     (qs, pk, pv, sk, sv), qps, sps = _prefix_case(2, 4, 2, 16, 37, 8,
                                                   "float32")
     sp_ops.prefix_attention(qs[1], pk[1], pv[1],
@@ -163,6 +166,7 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
     assert (fa_ops.launches, pd_ops.launches) == (n_fa, n_pd)
     assert (da_ops.launches, lru_ops.launches) == (n_da, n_lru)
     assert sp_ops.launches == n_sp
+    assert (sp_ops.tensor_core_launches, sp_ops.cuda_core_launches) == n_body
     with pytest.raises(TypeError):
         sp_ops.prefix_attention(qs[1], pk[1], pv[1],
                                 torch.arange(37, dtype=torch.int64))
@@ -669,6 +673,116 @@ def test_jax_ref_and_op_disagree_before_the_prefix_end_port_follows_op():
     np.testing.assert_allclose(j_op[0], j_ref[0], atol=2e-5, rtol=2e-5)
     assert np.abs(j_op[1] - j_ref[1]).max() > 0.1
     _close(port, j_op, 2e-5)
+
+
+@pytest.mark.parametrize("P", [1, 37, 64, 131, 2048, 5000, 70000])
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("Hkv,n_sm", [(1, 132), (8, 132), (2, 4), (8, 1)])
+def test_prefix_chunk_plan_covers_every_key_once(P, Dh, Hkv, n_sm):
+    """The prefix kernel's plan: chunks [c*chunk, min((c+1)*chunk, P))
+    cover each key once, the chunk is whole sub-tiles (the tensor-core
+    body's tiles: 16 keys for each of its key-splitting warps), a head's
+    chunks fill at most its share of whole clusters, one cluster a head at
+    least, and B is no input of the plan."""
+    chunk, n_chunks = sp_ops.plan_chunks(P, Dh, Hkv, n_sm)
+    covered = np.zeros(P, np.int64)
+    for c in range(n_chunks):
+        covered[c * chunk:min((c + 1) * chunk, P)] += 1
+    assert np.all(covered == 1)
+    assert (n_chunks - 1) * chunk < P <= n_chunks * chunk
+    assert chunk % sp_ops.sub_tile(Dh) == 0 and chunk % 16 == 0
+    clusters = -(-n_chunks // sp_ops.CLUSTER)
+    assert clusters == 1 or Hkv * clusters <= n_sm // (2 * sp_ops.CLUSTER)
+    assert set(inspect.signature(sp_ops.plan_chunks).parameters) == {
+        "P", "head_dim", "n_kv_heads", "n_sm"}
+
+
+def _lse_merge(parts):
+    """(acc, m, l) partials merged by log-sum-exp in their order."""
+    m = torch.stack([p[1] for p in parts]).amax(0)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for a_c, m_c, l_c in parts:
+        w = torch.exp(m_c - m)
+        l = l + w * l_c
+        acc = acc + w[..., None] * a_c
+    return acc, m, l
+
+
+def _prefix_split_emulation(q, pk, pv, chunk, n_chunks):
+    """The tensor-core body's arithmetic in plain torch: the plain prefix
+    pass over each planned chunk, merged by log-sum-exp in chunk order
+    within each cluster of ``CLUSTER`` chunks, then the clusters in order,
+    pinned where no key was valid."""
+    P = pk.shape[0]
+    parts = [prefix_attention_ref(
+        q, pk[c * chunk:(c + 1) * chunk].contiguous(),
+        pv[c * chunk:(c + 1) * chunk].contiguous(),
+        torch.arange(c * chunk, min((c + 1) * chunk, P), dtype=torch.int32))
+        for c in range(n_chunks)]
+    cl = sp_ops.CLUSTER
+    acc, m, l = _lse_merge([_lse_merge(parts[i:i + cl])
+                            for i in range(0, n_chunks, cl)])
+    empty = l == 0
+    return (torch.where(empty[..., None], 0.0, acc),
+            torch.where(empty, NEG_INF, m), l)
+
+
+@pytest.mark.parametrize("P,block_p,n_sm", [(131, 131, 8), (2048, 512, 8),
+                                           (2048, 512, 132)])
+def test_prefix_split_emulation_matches_jax_op_interpret(P, block_p, n_sm):
+    """The kernel's split, emulated (chunks of the plan, merged in chunk
+    order within clusters and the clusters in order, then merged with the
+    suffix pass), against the JAX op with its Pallas kernels in interpret
+    mode: P prime and P=2048 (in one cluster and, at 132 SMs, in four),
+    ragged suffixes, an all -1 suffix and a query before the prefix's
+    end."""
+    B, H, Hkv, Dh, Ts = 4, 4, 2, 64, 64
+    (q, pk, pv, sk, sv), qp, sp = _prefix_case(B, H, Hkv, Dh, P, Ts,
+                                               "float32", seed=P)
+    chunk, n_chunks = sp_ops.plan_chunks(P, Dh, Hkv, n_sm)
+    assert n_chunks > 1
+    prefix = _prefix_split_emulation(q[1], pk[1], pv[1], chunk, n_chunks)
+    suffix = da_ops.decode_attention(q[1], sk[1], sv[1], q_positions=qp[1],
+                                     kv_positions=sp[1], return_lse=True)
+    out = merge_prefix_suffix(prefix, suffix, torch.float32)
+    ref = j_shared_prefix(q[0], pk[0], pv[0], sk[0], sv[0],
+                          q_positions=qp[0], suffix_positions=sp[0],
+                          block_p=block_p, block_t=32, interpret=True)
+    _close(out, ref, 2e-5)
+    whole = sp_ops.prefix_attention(q[1], pk[1], pv[1],
+                                    torch.arange(P, dtype=torch.int32))
+    for a, b in zip(prefix, whole):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("terms,within", [(2, False), (3, True)])
+def test_prefix_pv_split_of_p_into_bf16_terms(terms, within):
+    """The tensor-core body feeds p to the PV product as bf16 terms, each
+    the rounding of what the ones before leave, times bf16 V, summed in
+    f32.  At the smoke's full shapes (B=32, H=16, Hkv=8, Dh=128, P=2048,
+    seed 13) three terms stay within the kernel's limit of 2e-5 + 2e-5 x
+    |acc| of the f32 product; two terms (about 2^-17 p) do not, which is
+    why the kernel takes three."""
+    B, H, Hkv, Dh, P = 32, 16, 8, 128, 2048
+    G = H // Hkv
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(torch.bfloat16).float()
+               for s in ((B, H, Dh), (P, Hkv, Dh), (P, Hkv, Dh)))
+    qf = q.reshape(B, Hkv, G, Dh).transpose(0, 1).reshape(Hkv, B * G, Dh)
+    s = torch.einsum("hrd,phd->hrp", qf, k) / np.sqrt(Dh)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    vh = v.transpose(0, 1)
+    exact = p @ vh
+    rest, split = p, torch.zeros_like(exact)
+    for _ in range(terms):
+        term = rest.to(torch.bfloat16).float()
+        split = split + term @ vh
+        rest = rest - term
+    err = (split - exact).abs()
+    ratio = (err / (2e-5 + 2e-5 * exact.abs())).max().item()
+    assert (ratio <= 1.0) == within, ratio
 
 
 # ------------------------------------------------------ online softmax
