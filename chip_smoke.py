@@ -48,7 +48,20 @@ each:
    invariance in bf16 and (asserted) on a float32 copy of the weights, and
    a prompt past the 2048-token window held against the teacher-forced
    forward;
-6. the wall time, a ``{"kernels": [...]}`` line, the card's
+6. processor: Halo's batched workflows (``w5``, TPC-H, 8 queries, 2
+   workers, ``decode_cap`` 16) through ``RealProcessor.run`` over
+   engines of full-width qwen3-1.7b under the three model names, planned
+   on the H100 profile, with a checkpoint: every (query, node) result,
+   a model switch, every bf16 flash launch on the tensor cores, the
+   paged split where a table passes one chunk, no plain version; the
+   time in decode steps, admissions and switches, and the device's busy
+   share under the profiler; a resume from the checkpoint that
+   recomputes nothing; the results against coalescing off and
+   pipelining off (bf16 logged, a float32 copy of the weights asserted);
+   a warm prefix of worker 0 migrated to worker 1's engine and served
+   there (float32, equal to a cold run); a ``ProcessorSession`` with a
+   second batch grafted while the first decodes;
+7. the wall time, a ``{"kernels": [...]}`` line, the card's
    ``nvidia-smi`` line, and the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -807,7 +820,7 @@ def engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,
     dv._decode_once = timed_decode
     names = ("cold_c", "cold_d", "share_a")
     da_ops.reset_counts()
-    pd_ops.launches = 0
+    pd_ops.reset_counts()
     handles = {n: dv.submit(prompts[n], max_new_tokens=max_new)
                for n in names}
     res = {n: h.result(timeout=600) for n, h in handles.items()}
@@ -923,8 +936,8 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
     eng._decode_once, eng._admit_one = timed_decode, timed_admit
     fa_ops.reset_counts()
     da_ops.reset_counts()
-    lru_ops.launches = 0
-    pd_ops.launches = 0
+    lru_ops.reset_counts()
+    pd_ops.reset_counts()
     plain0 = plain_calls["n"]
     t_run = time.perf_counter()
     outs = serve(eng)
@@ -1087,6 +1100,463 @@ def hybrid_ring(torch, model, m32, words, vocab):
         tolerance="1e-3*scale",
         same_argmax=torch.equal(got.argmax(-1), ref.argmax(-1)),
         control_slots_0_to_T_max_abs_diff=f"{ctrl:.4e}")
+
+
+def kernels_paged_one_chunk(torch, F, rng, pd_ops, fused_ref, q, pools):
+    """The fused paged kernel at the Processor's decode shape (B=8, bf16 q
+    over an f32 pool, qwen3's heads): tables of one chunk (8 pages, 64
+    keys), so every (row, KV head) is one block that writes its output
+    directly, with no partials and no merge, and one padding row, as the
+    engine pads a batch of 7.  Held against the plain version; the
+    layers' pools are cycled as in ``[kernels.paged_main]``."""
+    dev = q.device
+    B, H, Dh = q.shape
+    NL, P, ps, Hkv, _ = pools[0].shape
+    NP = pd_ops.plan_chunk_pages(ps, Dh)
+    lens_l = [NP * ps - 1, 1, 17, 40, NP * ps - 9, 3, 29, -1][:B]
+    lens = torch.as_tensor(lens_l, dtype=torch.int32, device=dev)
+    pt = torch.as_tensor(rng.permutation(P)[:B * NP].reshape(B, NP),
+                         dtype=torch.int32).to(dev)
+    assert max(pd_ops.row_chunks(n, ps, NP, NP) for n in lens_l) == 1
+
+    def new_kv():
+        return torch.as_tensor(rng.normal(size=(B, Hkv, Dh)),
+                               dtype=torch.float32).to(dev)
+
+    k_new, v_new = new_kv(), new_kv()
+    kp, vp = pools[0][-1].clone(), pools[1][-1].clone()
+    kr, vr = kp.clone(), vp.clone()
+    n0, s0 = pd_ops.launches, pd_ops.split_launches
+    out, k1, v1 = pd_ops.fused_paged_decode_attention(q, kp, vp, pt, lens,
+                                                      k_new, v_new)
+    ref, kr, vr = fused_ref(q, kr, vr, pt, lens, k_new, v_new)
+    torch.cuda.synchronize()
+    assert pd_ops.launches == n0 + 1 and pd_ops.split_launches == s0, \
+        "a table of one chunk was split"
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err < 3e-2, f"paged one-chunk err {err}"
+    assert torch.equal(k1, kr) and torch.equal(v1, vr), \
+        "paged one-chunk append differs from the plain scatter"
+    del kp, vp, kr, vr
+    layer = [0]
+
+    def run():
+        i = layer[0] = (layer[0] + 1) % NL
+        return pd_ops.fused_paged_decode_attention(
+            q, pools[0][i], pools[1][i], pt, lens, k_new, v_new)
+
+    def plain():
+        i = layer[0] = (layer[0] + 1) % NL
+        return fused_ref(q, pools[0][i], pools[1][i], pt, lens, k_new, v_new)
+
+    T = NP * ps
+    kd = pools[0][0][pt.long()].reshape(B, T, Hkv, Dh).transpose(1, 2)
+    vd = pools[1][0][pt.long()].reshape(B, T, Hkv, Dh).transpose(1, 2)
+    qd = q.float()[:, :, None, :]
+    dmask = (torch.arange(T, device=dev)[None, :]
+             <= lens[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask,
+                                              enable_gqa=True)
+
+    live = sum(min(n // ps + 1, NP) for n in lens_l if n >= 0)
+    valid_tokens = sum(n + 1 for n in lens_l if n >= 0)
+    nbytes = live * ps * Hkv * Dh * 4 * 2 + q.numel() * 2 * 2 \
+        + 4 * (pt.numel() + B) + 2 * k_new.numel() * 4 * 2
+    bnd, by = bound(nbytes, 4 * H * Dh * valid_tokens, "float32")
+    s1 = pd_ops.split_launches
+    res = {"shape": f"fused,B={B},table_pages={NP},ps={ps},Hkv={Hkv},"
+                    f"Dh={Dh},q=bf16,pool=f32,lengths={lens_l}",
+           "max_abs_err": err, "ms": time_ms(torch, run, iters=40),
+           "device_ms": profile_calls(torch, run, 40)[1],
+           "plain_ms": time_ms(torch, plain),
+           "bound_ms": bnd, "bound_by": by,
+           "library_ms": time_ms(torch, library)}
+    assert pd_ops.split_launches == s1, "a timed one-chunk launch was split"
+    res["split_launches"] = 0
+    log("kernels.paged_one_chunk", **{k: (f"{v:.4g}" if isinstance(v, float)
+                                          else v) for k, v in res.items()},
+        tolerance=3e-2, append="bitwise", bytes=nbytes)
+    return res
+
+
+def processor_share(part: int, whole: int) -> str:
+    return f"{part}/{whole}" + (f" ({part / whole:.3f})" if whole else "")
+
+
+def results_compare(a, b):
+    """(share of equal values over a's keys, first key that differs)."""
+    keys = sorted(a)
+    same = sum(1 for k in keys if a[k] == b.get(k))
+    first = next((k for k in keys if a[k] != b.get(k)), None)
+    return f"{same}/{len(keys)}", first
+
+
+def processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
+                     plain_calls):
+    """Halo's batched workflows through the port's Processor at qwen3-1.7b's
+    full width: ``RealProcessor.run`` over two workers, a resume from its
+    checkpoint, the results against coalescing off and pipelining off (in
+    bf16, and on a float32 copy of the weights, asserted), a
+    ``ProcessorSession`` with a graft, and a KV migration between the
+    workers' engines.  Returns the launches of its main path."""
+    import tempfile
+
+    from repro_torch.core import EpochDPSolver, SolverConfig, consolidate
+    from repro_torch.engine import tokenizer
+    from repro_torch.engine.engine import InferenceEngine
+    from repro_torch.launch.serve import build_cost_model, model_configs
+    from repro_torch.runtime import (KVMigrator, ProcessorConfig,
+                                     ProcessorSession, RealProcessor)
+    from repro_torch.runtime.executors import EngineHost
+    from repro_torch.workloads import build_workload
+    from repro_torch.workloads.datagen import build_database
+    from repro_torch.workloads.tools import ToolRuntime
+
+    def batch(name, n, n_workers):
+        """(graph, bindings, consolidated graph, plan on h100, database)."""
+        g, bindings, dbname = build_workload(name, n, seed=0)
+        cons = consolidate(g, bindings)
+        plan = EpochDPSolver(g.llm_dag(), build_cost_model(g, cons, "h100"),
+                             SolverConfig(num_workers=n_workers)).solve()
+        return g, bindings, cons, plan, build_database(dbname)
+
+    workload, n_queries, workers, cap = "w5", 8, 2, 16
+    work = batch(workload, n_queries, workers)
+    g, bindings, cons, plan, db = work
+    models = model_configs("cuda")
+    n_results = n_queries * len(g.nodes)
+
+    def config(**kw):
+        kw.setdefault("num_workers", workers)
+        return ProcessorConfig(decode_cap=cap, seed=0, hardware="h100", **kw)
+
+    def run(hosts, cfg=None, models=models, work=work, **run_kw):
+        g_, _, cons_, plan_, db_ = work
+        proc = RealProcessor(g_, models, ToolRuntime(db_),
+                             config=cfg or config())
+        t0 = time.perf_counter()
+        rep = proc.run(cons_, plan_, hosts=hosts, **run_kw)
+        torch.cuda.synchronize()
+        return rep, time.perf_counter() - t0
+
+    def free(hosts):
+        for h in hosts:
+            h.shutdown()
+            for e in h.engines():
+                e.unload()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def longest_prompt(hosts):
+        return max((len(p) for h in hosts for nid in g.llm_nodes()
+                    for p in h.prompts_for(nid)), default=0)
+
+    # ------------------------------------------------------------ the run
+    def timed_run(*args, **kw):
+        """``run`` with where its time goes: every engine's decode steps
+        (wall and the loop thread's CPU seconds) and admissions (prefill),
+        timed on the engines' loop threads."""
+        t = {"step": [], "step_cpu": [], "admit": []}
+        orig_decode, orig_admit = (InferenceEngine._decode_paged,
+                                   InferenceEngine._admit_one)
+
+        def timed_decode(self):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            orig_decode(self)
+            t["step_cpu"].append(time.thread_time() - c0)
+            t["step"].append(time.perf_counter() - t0)
+
+        def timed_admit(self, req):
+            t0 = time.perf_counter()
+            slot = orig_admit(self, req)
+            t["admit"].append(time.perf_counter() - t0)
+            return slot
+
+        InferenceEngine._decode_paged = timed_decode
+        InferenceEngine._admit_one = timed_admit
+        try:
+            return (*run(*args, **kw), t)
+        finally:
+            InferenceEngine._decode_paged = orig_decode
+            InferenceEngine._admit_one = orig_admit
+
+    def mean_ms(xs):
+        return f"{1e3 * sum(xs) / max(len(xs), 1):.3f}"
+
+    mods = (fa_ops, pd_ops, da_ops, sp_ops, lru_ops)
+    plain0 = plain_calls["n"]
+    hosts = [EngineHost(models, seed=0) for _ in range(workers)]
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/batch.json"
+        for m in mods:
+            m.reset_counts()
+        rep, wall_s, times = timed_run(hosts, checkpoint_path=ckpt)
+        launches = {"flash_attention": fa_ops.launches,
+                    "flash_tensor_core": fa_ops.tensor_core_launches,
+                    "paged_decode_attention": pd_ops.launches,
+                    "paged_split": pd_ops.split_launches,
+                    "decode_attention": da_ops.launches,
+                    "shared_prefix_attention": sp_ops.launches,
+                    "rglru_scan": lru_ops.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        res = rep.results()
+        assert len(res) == n_results and all(
+            isinstance(v, str) and v for v in res.values()), \
+            f"{len(res)} of {n_results} results, or an empty one"
+        x = rep.extra
+        assert x["model_switches"] >= 1, "no model switch"
+        assert launches["flash_attention"] > 0 \
+            and launches["paged_decode_attention"] > 0, launches
+        assert launches["flash_tensor_core"] == launches["flash_attention"], \
+            "a bf16 flash launch missed the tensor cores"
+        # a call splits its rows' pages across blocks when its table
+        # holds more than one chunk: the engines record the widest table
+        # they built
+        longest = longest_prompt(hosts)
+        engines = [e for h in hosts for e in h.engines()]
+        chunk = pd_ops.plan_chunk_pages(engines[0].page_size,
+                                        engines[0].cfg.head_dim)
+        widest = max(e.stats.widest_decode_table for e in engines)
+        ps = engines[0].page_size
+        widest, chunk_keys = widest * ps, chunk * ps
+        if widest > chunk_keys:
+            assert launches["paged_split"] > 0, "no paged launch was split"
+        else:
+            assert launches["paged_split"] == 0, \
+                "a table of one chunk was split"
+        assert plain_calls["n"] == plain0, "a plain version ran"
+        log("processor.run", workload=workload, queries=n_queries,
+            workers=workers, decode_cap=cap, models="3 names x "
+            "qwen3-1.7b(full width, 28 layers, bf16, seed 0)",
+            plan_epochs=len(plan.epochs),
+            plan_predicted_s=f"{plan.predicted_cost:.3f}",
+            plan_hardware="h100", wall_s=f"{wall_s:.3f}",
+            makespan_s=f"{rep.makespan:.3f}",
+            queries_per_s=f"{n_queries / wall_s:.4f}",
+            decode_tokens=x["decode_tokens"],
+            model_switches=x["model_switches"],
+            switch_s=f"{sum(h.switch_seconds for h in hosts):.3f}",
+            prefill_tokens_saved=x["prefill_tokens_saved"],
+            coalesced_requests=x["coalesced_requests"],
+            admission_waves=x["admission_waves"],
+            peak_batch=x["peak_batch"],
+            coalesce_stats=json.dumps(rep.coalesce_stats),
+            longest_prompt=longest, widest_table_keys=widest,
+            chunk_keys=chunk_keys, max_memory_allocated_gib=f"{peak_gib:.3f}",
+            flash_launches=launches["flash_attention"],
+            flash_tensor_core=processor_share(
+                launches["flash_tensor_core"], launches["flash_attention"]),
+            paged_launches=launches["paged_decode_attention"],
+            paged_split=processor_share(launches["paged_split"],
+                                        launches["paged_decode_attention"]),
+            other_launches=json.dumps(
+                {k: launches[k] for k in ("decode_attention",
+                                          "shared_prefix_attention",
+                                          "rglru_scan")}),
+            plain_calls=plain_calls["n"] - plain0)
+        summary = rep.summary()
+        log("processor.time", wall_s=f"{wall_s:.3f}",
+            decode_steps=len(times["step"]),
+            decode_step_s=f"{sum(times['step']):.3f}",
+            mean_step_ms=mean_ms(times["step"]),
+            mean_step_thread_cpu_ms=mean_ms(times["step_cpu"]),
+            decode_tok_per_s=f"{x['decode_tokens'] / wall_s:.2f}",
+            admissions=len(times["admit"]),
+            admission_s=f"{sum(times['admit']):.3f}",
+            prefill_ms_per_admission=mean_ms(times["admit"]),
+            llm_record_s=summary["gpu_seconds"],
+            tool_record_s=summary["cpu_seconds"],
+            cpu_gpu_overlap_s=x["cpu_gpu_overlap_s"],
+            switch_s=f"{sum(h.switch_seconds for h in hosts):.3f}")
+
+        # ------------------------------------------------------ resume
+        again, resume_s = run(hosts, resume_from=ckpt)
+        assert again.results() == res, "resumed results differ"
+        assert again.coalesce_stats["restored_results"] == n_results
+        assert again.extra["decode_tokens"] == 0, "resume recomputed"
+        log("processor.resume", restored_results=again.coalesce_stats[
+            "restored_results"], decode_tokens=again.extra["decode_tokens"],
+            results="equal", wall_s=f"{resume_s:.3f}")
+    free(hosts)
+
+    # ------------------------------------------------------------ profile
+    # the same run under the profiler: the device's busy time (its
+    # kernels' intervals summed) against the run's wall time there
+    from torch.profiler import ProfilerActivity, profile
+    hs = [EngineHost(models, seed=0) for _ in range(workers)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prep, prof_s = run(hs)
+    free(hs)
+    per_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[e.name[:60]] = per_kernel.get(e.name[:60], 0.0) \
+                + e.time_range.elapsed_us()
+    del prof
+    busy_s = sum(per_kernel.values()) / 1e6
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    log("processor.profile", wall_s_under_profiler=f"{prof_s:.3f}",
+        device_busy_s=f"{busy_s:.3f}" if per_kernel else "not measured",
+        device_busy_share=f"{busy_s / prof_s:.3f}" if per_kernel
+        else "not measured",
+        top_kernels_s=json.dumps([[k, round(us / 1e6, 4)]
+                                  for k, us in top]),
+        equal_results=results_compare(res, prep.results())[0])
+
+    # --------------------------------------------------------- one worker
+    # the same batch on one worker (one engine loop at a time, a plan
+    # for one worker): does a decode step get back to the engine's own
+    # time when no second engine loop shares the interpreter lock?
+    w1 = batch(workload, n_queries, 1)
+    hs = [EngineHost(models, seed=0)]
+    one, one_s, t1 = timed_run(hs, config(num_workers=1), work=w1)
+    free(hs)
+    log("processor.one_worker", workers=1, plan_epochs=len(w1[3].epochs),
+        wall_s=f"{one_s:.3f}", decode_steps=len(t1["step"]),
+        mean_step_ms=mean_ms(t1["step"]),
+        mean_step_thread_cpu_ms=mean_ms(t1["step_cpu"]),
+        prefill_ms_per_admission=mean_ms(t1["admit"]),
+        two_workers_mean_step_ms=mean_ms(times["step"]),
+        two_workers_mean_step_thread_cpu_ms=mean_ms(times["step_cpu"]),
+        equal_results=results_compare(res, one.results())[0])
+
+    # --------------------------------------------------------- invariance
+    arms = {"coalescing_off": {"coalescing": False},
+            "pipelining_off": {"pipelining": False}}
+    for name, kw in arms.items():
+        hs = [EngineHost(models, seed=0) for _ in range(workers)]
+        other, arm_s = run(hs, config(**kw))
+        free(hs)
+        same, first = results_compare(res, other.results())
+        log("processor.invariance", dtype="bfloat16", arm=name,
+            equal_results=same, first_differing=first,
+            cpu_gpu_overlap_s=other.extra["cpu_gpu_overlap_s"],
+            wall_s=f"{arm_s:.3f}")
+    # a float32 copy of the same weights: every arm must give the same
+    # results, as the engine's float32 arms do
+    eng = InferenceEngine(models["qwen3-14b"], seed=0)
+    eng.load()
+    sd32 = {k: v.float() for k, v in eng.model.state_dict().items()}
+    eng.unload()
+    del eng
+    models32 = {m: c.replace(dtype="float32") for m, c in models.items()}
+
+    def hosts32(**engine_kwargs):
+        return [EngineHost(models32, seed=0, weights=lambda m: sd32,
+                           engine_kwargs=engine_kwargs)
+                for _ in range(workers)]
+
+    proc32 = {}
+    base32 = hosts32()
+    for name, kw in {"base": {}, **arms}.items():
+        hs = base32 if name == "base" else hosts32()
+        r32 = run(hs, config(**kw), models=models32)[0]
+        proc32[name] = r32.results()
+        if name != "base":
+            free(hs)
+        same, first = results_compare(proc32["base"], proc32[name])
+        log("processor.invariance", dtype="float32", arm=name,
+            equal_results=same, first_differing=first,
+            cpu_gpu_overlap_s=r32.extra["cpu_gpu_overlap_s"],
+            equal_bf16=results_compare(res, proc32[name])[0])
+    for name in arms:
+        assert proc32[name] == proc32["base"], \
+            f"float32 results move with {name}"
+
+    # w5's tools are all roots, so no tool runs while an LLM node does
+    # and pipelining has nothing to overlap there.  Workload wt (an LLM
+    # node, two tools on its rows, an LLM node on theirs) at 4 queries
+    # and max_batch 2 admits each node in two waves: pipelined, the first
+    # wave's tools run while the second decodes.  Results must not move.
+    wt = batch("wt", 4, workers)
+    pipe = {}
+    for on in (True, False):
+        hs = hosts32(max_batch=2)
+        r32, arm_s = run(hs, config(pipelining=on), models=models32,
+                         work=wt)
+        free(hs)
+        pipe[on] = r32
+        log("processor.pipelining", dtype="float32", workload="wt",
+            queries=4, max_batch=2, pipelining=on,
+            cpu_gpu_overlap_s=r32.extra["cpu_gpu_overlap_s"],
+            admission_waves=r32.extra["admission_waves"],
+            wall_s=f"{arm_s:.3f}")
+    assert pipe[True].extra["cpu_gpu_overlap_s"] > 0, \
+        "pipelining overlapped no tool with LLM work"
+    assert pipe[True].results() == pipe[False].results(), \
+        "float32 results move with pipelining"
+
+    # ------------------------------------------------------------ migrate
+    # a node worker 0 served with the model still resident there: its
+    # warm prefixes move to worker 1's engine of that model, on the card
+    src_host, dst_host = base32
+    model = src_host.resident
+    nid = next(n for n in reversed(g.topo_order()) if g.nodes[n].is_llm()
+               and g.nodes[n].model == model and src_host.prompts_for(n))
+    dst = dst_host.engine_for_import(model)
+    pages0 = dst.stats.pages_migrated_in
+    moved = KVMigrator(g, base32).migrate_node_from_peers(nid, 1)
+    pages = dst.stats.pages_migrated_in - pages0
+    assert moved > 0 and pages > 0, (moved, pages)
+    dst_host.engine_for(model)         # resident: loads the weights only
+    prompt = list(src_host.prompts_for(nid)[-1])
+    n_new = min(g.nodes[nid].max_new_tokens, cap)
+    hits0, saved0 = dst.stats.prefix_hits, dst.stats.prefill_tokens_saved
+    warm = dst.generate([prompt], max_new_tokens=n_new)[0]
+    hits = dst.stats.prefix_hits - hits0
+    saved = dst.stats.prefill_tokens_saved - saved0
+    dst.release_warm()
+    cold = dst.generate([prompt], max_new_tokens=n_new)[0]
+    assert hits == 1 and saved == len(prompt) - 1, (hits, saved)
+    assert warm == cold, "migrated prefix changed the tokens"
+    log("processor.migrate", node=nid, model=model, dtype="float32",
+        prefixes_moved=moved, pages_migrated_in=pages,
+        prompt_tokens=len(prompt), prefix_hit=hits, tokens_saved=saved,
+        warm_equals_cold=warm == cold,
+        equals_run_result=tokenizer.detokenize(warm) in {
+            v for k, v in proc32["base"].items()
+            if k.endswith(":" + nid)})
+    free(base32)
+    del sd32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ session
+    session = ProcessorSession(models, ToolRuntime(db), config=config())
+    session.open()
+    try:
+        first = session.submit(g, bindings[:4])
+        deadline = time.monotonic() + 300
+        while sum(e.stats.decode_tokens for h in session.hosts
+                  for e in h.engines()) == 0:
+            assert time.monotonic() < deadline, "the first batch never decoded"
+            time.sleep(0.002)
+        second = session.submit(g, bindings[4:], slo="interactive")
+        outs = [h.result(timeout=600) for h in first + second]
+        session.drain(600)
+        srep = session.report()
+    finally:
+        session.close()
+    assert all(h.done() and h.exception() is None for h in first + second)
+    assert all(len(o) == len(g.nodes) and all(o.values()) for o in outs)
+    assert srep.extra["grafts"] == 1
+
+    def ttft(handles):
+        return json.dumps([round(h.ttft(), 4) for h in handles])
+
+    log("processor.session", batch_queries=len(first),
+        interactive_queries=len(second), grafts=srep.extra["grafts"],
+        batch_ttft_s=ttft(first), interactive_ttft_s=ttft(second),
+        admission_waves=srep.extra["admission_waves"],
+        priority_jumps=srep.extra["priority_jumps"],
+        makespan_s=f"{srep.makespan:.3f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1396,6 +1866,8 @@ def main() -> int:
         single_ms=f"{time_ms(torch, arm('single'), iters=40):.4f}",
         blocked_ppb4_ms=f"{time_ms(torch, arm('blocked'), iters=40):.4f}",
         plain_ms=f"{time_ms(torch, arm_plain):.4f}")
+    kernels[-1]["one_chunk"] = kernels_paged_one_chunk(
+        torch, F, rng, pd_ops, fused_paged_decode_attention_ref, q, pools)
     del pools, kd, vd, ks, vs
     torch.cuda.empty_cache()
 
@@ -1665,8 +2137,18 @@ def main() -> int:
     kernels[2]["launches"] = hyb["decode_attention"]
     kernels[2]["split_launches"] = hyb["decode_split"]
     kernels[3]["launches"] = hyb["rglru_scan"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ------------------------------------------------------- 6. the report
+    # -------------------------------------------------------- 6. processor
+    proc = processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
+                            plain_calls)
+    kernels[0]["processor_launches"] = proc["flash_attention"]
+    kernels[0]["processor_tensor_core_launches"] = proc["flash_tensor_core"]
+    kernels[1]["processor_launches"] = proc["paged_decode_attention"]
+    kernels[1]["processor_split_launches"] = proc["paged_split"]
+
+    # ------------------------------------------------------- 7. the report
     log("done", wall_s=f"{time.perf_counter() - t_start:.3f}",
         build_s=f"{build.build_seconds:.3f}")
     print(json.dumps({"kernels": kernels}))

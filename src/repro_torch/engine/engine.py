@@ -81,6 +81,7 @@ class EngineStats:
     h2d_bytes: int = 0                   # host->device traffic (KV + step inputs)
     d2h_bytes: int = 0                   # device->host traffic (KV + sampled ids)
     view_rebuilds: int = 0               # dense decode views built
+    widest_decode_table: int = 0         # most pages a paged decode table held
 
     def as_dict(self) -> Dict[str, float]:
         return dict(self.__dict__)
@@ -668,8 +669,9 @@ class InferenceEngine:
         if needed > kv.num_pages:
             raise MemoryError(
                 f"request needs {needed} KV pages but the pool holds only "
-                f"{kv.num_pages} ({kv.page_size} tokens/page); raise "
-                f"num_pages/max_seq_len or shrink the prompt / "
+                f"{kv.num_pages} ({kv.page_size} tokens/page) — it cannot "
+                f"be admitted even after evicting all warm sequences; "
+                f"raise num_pages/max_seq_len or shrink the prompt / "
                 f"max_new_tokens")
         needed += self._reserved_pages()
         while len(kv.free_pages) < needed:
@@ -891,6 +893,8 @@ class InferenceEngine:
         b_pad = self._round_b(b_real)
         t_cap = self._round_t(max(s.length + s.remaining for s in slots))
         n_pages = -(-t_cap // self.page_size)
+        self.stats.widest_decode_table = max(
+            self.stats.widest_decode_table, n_pages)
         pt = np.zeros((b_pad, n_pages), np.int32)
         lens = np.full((b_pad,), -1, np.int32)
         tokens = np.zeros((b_pad,), np.int32)

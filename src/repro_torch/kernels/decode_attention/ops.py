@@ -12,6 +12,8 @@ one chunk also runs the combine kernel and counts in ``split_launches``.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import build
@@ -27,11 +29,24 @@ VECTOR_BYTES = 16               # K/V are loaded 16 bytes a thread
 # and those split over more than one chunk (partials, then the combine)
 launches = 0
 split_launches = 0
+# the engines' loop threads launch concurrently: every update of the
+# counts holds the lock, so none is lost
+_count_lock = threading.Lock()
 
 
 def reset_counts() -> None:
     global launches, split_launches
-    launches = split_launches = 0
+    with _count_lock:
+        launches = split_launches = 0
+
+
+def _count(split: bool) -> None:
+    """Count one launch, and whether it was split."""
+    global launches, split_launches
+    with _count_lock:
+        launches += 1
+        if split:
+            split_launches += 1
 
 
 def sub_tile(head_dim: int) -> int:
@@ -82,7 +97,6 @@ def _launch(q, k, v, q_positions, kv_positions, window):
     """Launch on q (B,H,Dh) or (B,1,H,Dh), whose memory is the same, and
     q_positions (B,) or (B,1).  Returns out at q's shape, the f32 buffer
     that holds m and l after ``n_part`` partial values, and ``n_part``."""
-    global launches, split_launches
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, H, Dh = q.shape[0], q.shape[-2], q.shape[-1]
@@ -112,9 +126,7 @@ def _launch(q, k, v, q_positions, kv_positions, window):
         base + 4 * (n_part + B * H), base if n_part else None, B, T, H, Hkv,
         Dh, int(window), chunk, DTYPES[q.dtype], stream))
     build.check(err, "decode_attention_fwd")
-    launches += 1
-    if n_chunks > 1:
-        split_launches += 1
+    _count(n_chunks > 1)
     return out, buf, n_part
 
 

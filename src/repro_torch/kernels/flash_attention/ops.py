@@ -13,6 +13,8 @@ be TF32, and the small Dh of the sweeps run on the CUDA cores
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import build
@@ -28,11 +30,26 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 tensor_core_launches = 0
 cuda_core_launches = 0
+# the engines' loop threads launch concurrently: every update of the
+# counts holds the lock, so none is lost
+_count_lock = threading.Lock()
 
 
 def reset_counts() -> None:
     global launches, tensor_core_launches, cuda_core_launches
-    launches = tensor_core_launches = cuda_core_launches = 0
+    with _count_lock:
+        launches = tensor_core_launches = cuda_core_launches = 0
+
+
+def _count(tensor_cores: bool) -> None:
+    """Count one launch, and its body."""
+    global launches, tensor_core_launches, cuda_core_launches
+    with _count_lock:
+        launches += 1
+        if tensor_cores:
+            tensor_core_launches += 1
+        else:
+            cuda_core_launches += 1
 
 
 def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
@@ -72,7 +89,6 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, causal=True,
 
     Returns attention output (B,Sq,H,Dh) in q's dtype.
     """
-    global launches, tensor_core_launches, cuda_core_launches
     _check(q, k, v, q_positions, kv_positions)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_positions=q_positions,
@@ -95,9 +111,5 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, causal=True,
         kv_positions.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, Dh,
         int(causal), int(window), DTYPES[q.dtype], int(tc), stream))
     build.check(err, "flash_attention_fwd")
-    launches += 1
-    if tc:
-        tensor_core_launches += 1
-    else:
-        cuda_core_launches += 1
+    _count(tc)
     return out

@@ -20,6 +20,7 @@ the bits do not depend on it.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -48,11 +49,24 @@ _MAX_SMEM = 227 * 1024
 # merged by each row's last block)
 launches = 0
 split_launches = 0
+# the engines' loop threads launch concurrently: every update of the
+# counts holds the lock, so none is lost
+_count_lock = threading.Lock()
 
 
 def reset_counts() -> None:
     global launches, split_launches
-    launches = split_launches = 0
+    with _count_lock:
+        launches = split_launches = 0
+
+
+def _count(split: bool) -> None:
+    """Count one launch, and whether it was split."""
+    global launches, split_launches
+    with _count_lock:
+        launches += 1
+        if split:
+            split_launches += 1
 
 
 def plan_chunk_pages(page_size: int, head_dim: int) -> int:
@@ -134,7 +148,6 @@ def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, ppb):
     """Launch on q (B,H,Dh) or (B,1,H,Dh), whose memory is the same.
     Returns out at q's shape, the f32 buffer that holds m and l after
     ``n_part`` partial values, and ``n_part``."""
-    global launches, split_launches
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")
@@ -186,9 +199,7 @@ def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, ppb):
         base if n_part else None, B, H, Hkv, Dh, ps, n_pages, chunk, stage,
         int(append), DTYPES[q.dtype], DTYPES[k_pages.dtype], stream))
     build.check(err, "paged_decode_attention_fwd")
-    launches += 1
-    if n_split > 1:
-        split_launches += 1
+    _count(n_split > 1)
     return out, buf, n_part
 
 

@@ -7,6 +7,8 @@ cannot take raises.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import build
@@ -17,12 +19,27 @@ MAX_BATCH = 65535               # the grid's second dimension
 
 # kernel launches since the last reset (CPU calls are not counted)
 launches = 0
+# the engines' loop threads launch concurrently: every update of the
+# counts holds the lock, so none is lost
+_count_lock = threading.Lock()
+
+
+def reset_counts() -> None:
+    global launches
+    with _count_lock:
+        launches = 0
+
+
+def _count() -> None:
+    """Count one launch."""
+    global launches
+    with _count_lock:
+        launches += 1
 
 
 def linear_scan(a, b):
     """a, b: (B,S,D) float32 -> h (B,S,D) float32 of h_t = a_t * h_{t-1}
     + b_t from a zero state."""
-    global launches
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"linear_scan: a and b must be (B,S,D) alike; got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")
@@ -45,5 +62,5 @@ def linear_scan(a, b):
     err = launch_on(a.device, lambda stream: lib.linear_scan_fwd(
         a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D, stream))
     build.check(err, "linear_scan_fwd")
-    launches += 1
+    _count()
     return h

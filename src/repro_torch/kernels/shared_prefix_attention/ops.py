@@ -20,6 +20,8 @@ order in any batch.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import build
@@ -43,11 +45,26 @@ _ticket_buffers = {}
 launches = 0
 tensor_core_launches = 0
 cuda_core_launches = 0
+# the engines' loop threads launch concurrently: every update of the
+# counts holds the lock, so none is lost
+_count_lock = threading.Lock()
 
 
 def reset_counts() -> None:
     global launches, tensor_core_launches, cuda_core_launches
-    launches = tensor_core_launches = cuda_core_launches = 0
+    with _count_lock:
+        launches = tensor_core_launches = cuda_core_launches = 0
+
+
+def _count(tensor_cores: bool) -> None:
+    """Count one launch, and its body."""
+    global launches, tensor_core_launches, cuda_core_launches
+    with _count_lock:
+        launches += 1
+        if tensor_cores:
+            tensor_core_launches += 1
+        else:
+            cuda_core_launches += 1
 
 
 def uses_tensor_cores(dtype: torch.dtype) -> bool:
@@ -126,7 +143,6 @@ def _launch(q, prefix_k, prefix_v, prefix_positions, suffix=None):
     0..P-1.  Without ``suffix`` returns the partial ``(acc, m, l)``; with
     the suffix pass's ``(out_s, m_s, l_s)`` returns the op's output in q's
     dtype, merged in the kernel."""
-    global launches, tensor_core_launches, cuda_core_launches
     if q.device.type != "cuda":
         raise ValueError(f"prefix_attention: unsupported device {q.device}")
     B, H, Dh = q.shape
@@ -181,11 +197,7 @@ def _launch(q, prefix_k, prefix_v, prefix_positions, suffix=None):
         _tickets(q.device, s, n_tickets) if n_tickets else None, *sink, B,
         P, H, Hkv, Dh, chunk, int(tc), DTYPES[q.dtype], s))
     build.check(err, "prefix_attention_fwd")
-    launches += 1
-    if tc:
-        tensor_core_launches += 1
-    else:
-        cuda_core_launches += 1
+    _count(tc)
     return (acc, m, l) if suffix is None else out
 
 

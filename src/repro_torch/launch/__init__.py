@@ -1,0 +1,2 @@
+"""Launchers of the port: ``serve`` runs Halo's batched workflows on the
+port's engines."""

@@ -123,6 +123,29 @@ def test_kernel_variants_give_identical_tokens(weights, jax_run):
     assert outs["fused"][0] == jax_run["fresh"]
 
 
+def test_widest_decode_table_follows_the_longest_row(weights):
+    """The engine records the widest page table its paged decode built:
+    the longest row's prompt and decode budget, in ``_T_QUANTUM`` keys;
+    the dense view builds none."""
+    eng = _torch_engine(weights)
+    try:
+        eng.generate([LONG, SHORT], max_new_tokens=5)
+        assert eng.stats.widest_decode_table * eng.page_size == \
+            eng._round_t(len(LONG) + 5) == 32
+        eng.generate([list(range(1, 41))], max_new_tokens=4)
+        assert eng.stats.widest_decode_table * eng.page_size == 64
+        eng.generate([SHORT], max_new_tokens=3)
+        assert eng.stats.widest_decode_table * eng.page_size == 64
+    finally:
+        eng.shutdown()
+    dense = _torch_engine(weights, paged_decode=False)
+    try:
+        dense.generate([LONG], max_new_tokens=5)
+        assert dense.stats.widest_decode_table == 0
+    finally:
+        dense.shutdown()
+
+
 def test_unload_drops_weights_and_pages_and_reload_serves_alike(weights,
                                                                 jax_run):
     eng = _torch_engine(weights)

@@ -53,7 +53,12 @@ def test_every_module_imports_without_jax():
               "repro_torch.kernels.decode_attention.ops",
               "repro_torch.kernels.rglru_scan.ops",
               "repro_torch.kernels.shared_prefix_attention.ops",
-              "repro_torch.kernels.shared_prefix_attention.ref"):
+              "repro_torch.kernels.shared_prefix_attention.ref",
+              "repro_torch.core", "repro_torch.core.solver",
+              "repro_torch.workloads", "repro_torch.workloads.library",
+              "repro_torch.runtime", "repro_torch.runtime.executors",
+              "repro_torch.runtime.session", "repro_torch.runtime.migrate",
+              "repro_torch.launch.serve"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
@@ -73,6 +78,10 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert PKG / "configs" / "recurrentgemma_2b.py" in sources
     assert PKG / "engine" / "models" / "rglru.py" in sources
     assert PKG / "kernels" / "shared_prefix_attention" / "ops.py" in sources
+    for sub in ("core", "workloads", "runtime", "launch"):
+        assert PKG / sub / "__init__.py" in sources, sub
+    assert PKG / "runtime" / "executors.py" in sources
+    assert PKG / "launch" / "serve.py" in sources
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -92,6 +101,32 @@ def test_engine_defaults_to_cuda_and_raises_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(get_smoke("qwen3-1.7b"))
+
+
+def test_processor_entry_points_default_to_cuda_and_raise_without_a_card():
+    """An engine host, a session's open() and the launcher with default
+    arguments ask for the card, and raise where there is none: none falls
+    back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.launch import serve
+    from repro_torch.runtime import ProcessorSession
+    from repro_torch.runtime.executors import EngineHost
+    from repro_torch.workloads.datagen import build_database
+    from repro_torch.workloads.tools import ToolRuntime
+    models = {"qwen3-14b": get_smoke("qwen3-1.7b").replace(name="qwen3-14b")}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EngineHost(models)
+    session = ProcessorSession(models, ToolRuntime(build_database("tpch")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        session.open()
+    assert session.hosts is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main([])
+    # the CPU is reached only when asked for
+    host = EngineHost(models, engine_kwargs={"device": "cpu"})
+    assert host.engine_for("qwen3-14b").device.type == "cpu"
+    host.shutdown()
 
 
 def test_registry_holds_the_ported_config_only():
