@@ -21,9 +21,10 @@ each:
    over pages with each row bitwise the same alone under its own table
    and in a batch of eight under a wider one, the RG-LRU scan bitwise
    past its tile and block edges, the shared-prefix kernel and op over
-   prime and long prefixes with ragged suffixes, and the main paths'
+   prime and long prefixes with ragged suffixes, the main paths'
    full-width shapes with kernel / plain / library times and the card's
-   lower bound);
+   lower bound, and the paged kernel and flash at the head groupings of
+   the MoE and dense-family models, G = 1 with 16 KV heads, 3 and 4);
 3. shared prefix: the Hydragen op through its entry point at qwen3-1.7b's
    attention width, B=8 and B=32 rows on one 2048-token prefix; both of
    its kernels must launch, the prefix kernel on the tensor cores (it
@@ -61,7 +62,22 @@ each:
    a warm prefix of worker 0 migrated to worker 1's engine and served
    there (float32, equal to a cold run); a ``ProcessorSession`` with a
    second batch grafted while the first decodes;
-7. the wall time, a ``{"kernels": [...]}`` line, the card's
+7. the MoE family: full-width deepseek-moe-16b in bf16 (a dense lead
+   layer, then 27 layers of 64 routed experts top-6 and 2 shared) serving
+   the engine phase's six requests through flash prefill and the fused
+   paged decode, with each prefill chunk's and decode step's capacity and
+   routed slots dropped; its profile; the CUDA step against the plain
+   step in bf16 (logged, with the router's top-k selections that differ)
+   and on a float32 copy cut to 4 layers (asserted); batch invariance
+   (bf16 and the float32 copy); a prompt cold and over a shared prefix on
+   the float32 copy, logged: the reference's capacity is per prefill
+   chunk, so their tokens need not agree;
+8. the rest of the dense family: full-width qwen3-8b (G=4, untied head)
+   and llama3.2-3b (G=3), four requests each, the launch checks, CUDA
+   against plain step parity in bf16, and on a float32 copy cut to 4
+   layers the paged path's tokens equal to the dense view's;
+9. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
+   single and blocked arms as entries of their own), the card's
    ``nvidia-smi`` line, and the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -70,6 +86,7 @@ line.  Without a CUDA device it exits 2 before doing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import pathlib
@@ -150,6 +167,13 @@ def bound(nbytes: float, flops: float, dtype: str):
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fmt(d):
+    """A result's numbers for a log line: floats to five figures, nested
+    results left out."""
+    return {k: (f"{v:.5g}" if isinstance(v, float) else v)
+            for k, v in d.items() if not isinstance(v, dict)}
 
 
 def ring_positions(np, qp, T):
@@ -809,22 +833,11 @@ def engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,
     cfg = eng.cfg
     dv = InferenceEngine(cfg, seed=0, paged_decode=False)
     dv.load(eng.model.state_dict())
-    step_s = []
-    orig = dv._decode_once
-
-    def timed_decode():
-        t0 = time.perf_counter()
-        orig()
-        step_s.append(time.perf_counter() - t0)
-
-    dv._decode_once = timed_decode
+    step_s, _, undo = time_engine(dv, "_decode_once")
     names = ("cold_c", "cold_d", "share_a")
     da_ops.reset_counts()
     pd_ops.reset_counts()
-    handles = {n: dv.submit(prompts[n], max_new_tokens=max_new)
-               for n in names}
-    res = {n: h.result(timeout=600) for n, h in handles.items()}
-    dv.drain()              # the last step's timer appends after results
+    res = serve_requests(dv, prompts, max_new, names)
     torch.cuda.synchronize()
     da_n, pd_n = da_ops.launches, pd_ops.launches
     da_split = da_ops.split_launches
@@ -833,7 +846,7 @@ def engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,
     assert pd_n == 0 and n_steps > 0 \
         and da_n == cfg.num_layers * n_steps, (da_n, pd_n, n_steps)
     assert da_split == da_n, "a dense-view decode launch was not split"
-    dv._decode_once = orig
+    undo()
     log("engine.dense_view", model="qwen3-1.7b(full width, 28 layers)",
         paged_decode=False, requests=len(names), decode_steps=n_steps,
         decode_attention_launches=da_n, split_launches=da_split,
@@ -902,45 +915,17 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
                "late_e": tokenizer.tokenize(text(301), vocab)}
     assert all(100 <= len(p) <= 400 for p in prompts.values())
     max_new = 32
-
-    step_s, admit_s = [], []
-    orig_decode, orig_admit = eng._decode_once, eng._admit_one
-
-    def timed_decode():
-        t0 = time.perf_counter()
-        orig_decode()
-        step_s.append(time.perf_counter() - t0)
-
-    def timed_admit(req):
-        t0 = time.perf_counter()
-        slot = orig_admit(req)
-        admit_s.append(time.perf_counter() - t0)
-        return slot
-
-    def serve(eng):
-        """Four requests and a duplicate, then one more after the first
-        decode step: up to five live rows."""
-        handles = {n: eng.submit(prompts[n], max_new_tokens=max_new)
-                   for n in ("a", "b", "c", "d")}
-        handles["dup_a"] = eng.submit(prompts["a"], max_new_tokens=max_new)
-        deadline = time.monotonic() + 300
-        while eng.stats.decode_tokens < 1:
-            assert time.monotonic() < deadline, "engine made no decode step"
-            time.sleep(0.001)
-        handles["late_e"] = eng.submit(prompts["late_e"],
-                                       max_new_tokens=max_new)
-        outs = {n: h.result(timeout=600) for n, h in handles.items()}
-        eng.drain()         # the last step's timer appends after results
-        return outs
-
-    eng._decode_once, eng._admit_one = timed_decode, timed_admit
+    # four requests and a duplicate, then one more after the first decode
+    # step: up to five live rows
+    requests = (("a", "b", "c", "d", "a_dup"), ("late_e",))
+    step_s, admit_s, undo = time_engine(eng, "_decode_once")
     fa_ops.reset_counts()
     da_ops.reset_counts()
     lru_ops.reset_counts()
     pd_ops.reset_counts()
     plain0 = plain_calls["n"]
     t_run = time.perf_counter()
-    outs = serve(eng)
+    outs = serve_requests(eng, prompts, max_new, *requests)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches = {"flash_attention": fa_ops.launches,
@@ -949,10 +934,10 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
                 "decode_split": da_ops.split_launches,
                 "rglru_scan": lru_ops.launches,
                 "paged_decode_attention": pd_ops.launches}
-    eng._decode_once, eng._admit_one = orig_decode, orig_admit
+    undo()
     st = eng.stats
     assert all(len(o) == max_new for o in outs.values()), "short output"
-    assert outs["dup_a"] == outs["a"]
+    assert outs["a_dup"] == outs["a"]
     assert st.coalesced_requests >= 1 and st.peak_batch >= 2, st.as_dict()
     assert launches["flash_attention"] > 0 \
         and launches["decode_attention"] > 0 \
@@ -1038,7 +1023,7 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
     eng.shutdown()
     e32 = InferenceEngine(cfg.replace(dtype="float32"), seed=0)
     e32.load(model.state_dict())                       # bf16 -> f32, exact
-    outs32 = serve(e32)
+    outs32 = serve_requests(e32, prompts, max_new, *requests)
     alone32 = e32.generate([prompts["a"]], max_new_tokens=max_new)[0]
     assert all(len(o) == max_new for o in outs32.values()), "short output"
     log("hybrid.batch_invariance", dtype="float32", request="a",
@@ -1104,11 +1089,11 @@ def hybrid_ring(torch, model, m32, words, vocab):
 
 def kernels_paged_one_chunk(torch, F, rng, pd_ops, fused_ref, q, pools):
     """The fused paged kernel at the Processor's decode shape (B=8, bf16 q
-    over an f32 pool, qwen3's heads): tables of one chunk (8 pages, 64
-    keys), so every (row, KV head) is one block that writes its output
-    directly, with no partials and no merge, and one padding row, as the
-    engine pads a batch of 7.  Held against the plain version; the
-    layers' pools are cycled as in ``[kernels.paged_main]``."""
+    over an f32 pool, the heads of ``q`` and ``pools``): tables of one
+    chunk (8 pages, 64 keys), so every (row, KV head) is one block that
+    writes its output directly, with no partials and no merge, and one
+    padding row, as the engine pads a batch of 7.  Held against the plain
+    version; the layers' pools are cycled as in ``[kernels.paged_main]``."""
     dev = q.device
     B, H, Dh = q.shape
     NL, P, ps, Hkv, _ = pools[0].shape
@@ -1298,6 +1283,7 @@ def processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
                     "flash_tensor_core": fa_ops.tensor_core_launches,
                     "paged_decode_attention": pd_ops.launches,
                     "paged_split": pd_ops.split_launches,
+                    **paged_variant_counts(pd_ops),
                     "decode_attention": da_ops.launches,
                     "shared_prefix_attention": sp_ops.launches,
                     "rglru_scan": lru_ops.launches}
@@ -1559,6 +1545,682 @@ def processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
     return launches
 
 
+# the head groupings at Dh 128 of the models the engine phases serve:
+# (model, H, Hkv); the first fills the kernels line's own entries, the
+# others its "groups"
+GROUPINGS = (("qwen3-1.7b", 16, 8), ("deepseek-moe-16b", 16, 16),
+             ("llama3.2-3b", 24, 8), ("qwen3-8b", 32, 8))
+
+
+def kernels_at_grouping(torch, F, rng, arch, H, Hkv):
+    """Flash and the paged kernel at one model's head grouping, Dh 128,
+    at the engine's shapes, each against its plain version and timed
+    beside the card's bound and the PyTorch call for the same function.
+
+    Flash at the chunk shape (B=1, a 512-token chunk after 32 cached
+    keys, bf16), on the tensor cores.  The paged kernel at the decode
+    step's shape (B=8 rows of 65 live pages, page 8, bf16 q over an f32
+    pool; four layers' pools are cycled so each launch finds its pages
+    out of L2, as a step does): fused against the plain version and
+    bitwise equal to scatter-then-attend; under a wider table with rows
+    of several lengths and a padding row, single against the plain
+    version, blocked == single bitwise, and each row bitwise the same
+    alone under its own table and in the batch (the split's chunk plan
+    ignores B and the table's width); the attend-only arms timed; then
+    ``kernels_paged_one_chunk``.  Returns {"flash": {...}, "paged":
+    {...}, "arms": {"single": {...}, "blocked": {...}}}."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_decode_attention import ops as pd_ops
+    from repro_torch.kernels.paged_decode_attention.ref import (
+        fused_paged_decode_attention_ref, paged_decode_attention_ref,
+        scatter_append_ref)
+    dev = torch.device("cuda")
+    Dh, G = 128, H // Hkv
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.as_tensor(rng.normal(size=shape),
+                               dtype=torch.float32).to(dev, dtype)
+
+    # ---- flash at the engine's chunk shape
+    B, Sq, Skv = 1, 512, 544
+    q, k, v = rand(B, Sq, H, Dh), rand(B, Skv, Hkv, Dh), \
+        rand(B, Skv, Hkv, Dh)
+    qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32,
+                      device=dev).expand(B, Sq).contiguous()
+    kvp = torch.arange(Skv, dtype=torch.int32, device=dev).expand(
+        B, Skv).contiguous()
+
+    def fl_run():
+        return fa_ops.flash_attention(q, k, v, q_positions=qp,
+                                      kv_positions=kvp)
+
+    def fl_plain():
+        return flash_attention_ref(q, k, v, q_positions=qp,
+                                   kv_positions=kvp)
+
+    mask = kvp[:, None, None, :] <= qp[:, None, :, None]    # (B,1,Sq,Skv)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def fl_library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    n_tc = fa_ops.tensor_core_launches
+    err = (fl_run().float() - fl_plain().float()).abs().max().item()
+    assert err < 3e-2, f"{arch} flash err {err}"
+    assert fa_ops.tensor_core_launches == n_tc + 1, \
+        f"{arch} flash missed the tensor cores"
+    sdpa_err = (fl_library().transpose(1, 2).float()
+                - fl_plain().float()).abs().max().item()
+    pairs = int(mask.sum().item())
+    nbytes = 2 * (q.numel() * 2) + 2 * (k.numel() * 2) \
+        + 4 * (qp.numel() + kvp.numel())
+    bnd, by = bound(nbytes, 4 * Dh * H * pairs, "bfloat16")
+    flash = {"G": G, "Hkv": Hkv, "max_abs_err": err,
+             "ms": time_ms(torch, fl_run),
+             "device_ms": profile_calls(torch, fl_run, 20)[1],
+             "plain_ms": time_ms(torch, fl_plain),
+             "bound_ms": bnd, "bound_by": by,
+             "library_ms": time_ms(torch, fl_library)}
+    log("kernels.flash_main", model=arch, shape=f"B={B},Sq={Sq},Skv={Skv},"
+        f"H={H},Hkv={Hkv},Dh={Dh},bf16", tolerance=3e-2,
+        sdpa_err=f"{sdpa_err:.3e}", body="tensor cores", **fmt(flash))
+    del q, k, v, qt, kt, vt
+
+    # ---- paged at the engine's decode step
+    B, NP, ps, P, NL = 8, 65, 8, 1024, 4
+    q = rand(B, H, Dh)
+    pools = [rand(NL, P, ps, Hkv, Dh).float() for _ in range(2)]
+    pt = torch.as_tensor(rng.permutation(P)[:B * NP].reshape(B, NP),
+                         dtype=torch.int32).to(dev)
+    lens = torch.full((B,), NP * ps - 3, dtype=torch.int32, device=dev)
+    k_new, v_new = rand(B, Hkv, Dh).float(), rand(B, Hkv, Dh).float()
+    ks, vs = scatter_append_ref(pools[0][0].clone(), pools[1][0].clone(),
+                                pt, lens, k_new, v_new)
+    ref = paged_decode_attention_ref(q, ks, vs, pt, lens)
+    base = pd_ops.paged_decode_attention(q, ks, vs, pt, lens,
+                                         variant="blocked")
+    out, k0, v0 = pd_ops.fused_paged_decode_attention(
+        q, pools[0][0], pools[1][0], pt, lens, k_new, v_new)
+    pd_err = (out.float() - ref.float()).abs().max().item()
+    assert pd_err < 3e-2, f"{arch} paged err {pd_err}"
+    assert torch.equal(out, base) and torch.equal(k0, ks) \
+        and torch.equal(v0, vs), f"{arch} fused != scatter-then-attend"
+    del ks, vs
+
+    chunk = pd_ops.plan_chunk_pages(ps, Dh)
+    chunks_per_row = [pd_ops.row_chunks(int(n), ps, NP, chunk)
+                      for n in lens.tolist()]
+    var_lens = [NP * ps - 3, 2, chunk * ps, chunk * ps - 1, 20 * ps + 1,
+                -1, 3 * chunk * ps + 5, 40 * ps + 7]
+    wide = torch.as_tensor(rng.permutation(P)[:B * (NP + 7)].reshape(
+        B, NP + 7), dtype=torch.int32).to(dev)
+    var = torch.as_tensor(var_lens, dtype=torch.int32, device=dev)
+    kp, vp = pools[0][1], pools[1][1]
+    s0 = pd_ops.split_launches
+    single = pd_ops.paged_decode_attention(q, kp, vp, wide, var,
+                                           variant="single")
+    assert pd_ops.split_launches == s0 + 1, f"{arch} wide table not split"
+    single_err = (single.float() - paged_decode_attention_ref(
+        q, kp, vp, wide, var).float()).abs().max().item()
+    assert single_err < 3e-2, f"{arch} paged single err {single_err}"
+    assert torch.all(single[5] == 0), f"{arch} padding row not pinned"
+    for ppb in (2, 4, 8):
+        assert torch.equal(pd_ops.paged_decode_attention(
+            q, kp, vp, wide, var, variant="blocked", pages_per_block=ppb),
+            single), f"{arch} blocked ppb={ppb}"
+    batch = pd_ops.paged_decode_attention(q, kp, vp, wide, var,
+                                          return_lse=True)
+    for i, n in enumerate(var_lens):
+        one = pd_ops.paged_decode_attention(
+            q[i:i + 1].contiguous(), kp, vp,
+            wide[i:i + 1, :max(1, n // ps + 1)].contiguous(),
+            var[i:i + 1].contiguous(), return_lse=True)
+        assert all(torch.equal(a[0], b[i]) for a, b in zip(one, batch)), \
+            f"{arch} paged row {i} depends on its batch"
+    layer = [0]
+
+    def pd_run(variant="fused"):
+        i = layer[0] = (layer[0] + 1) % NL
+        if variant == "fused":
+            return pd_ops.fused_paged_decode_attention(
+                q, pools[0][i], pools[1][i], pt, lens, k_new, v_new)
+        return pd_ops.paged_decode_attention(
+            q, pools[0][i], pools[1][i], pt, lens, variant=variant)
+
+    def pd_plain(fused=True):
+        i = layer[0] = (layer[0] + 1) % NL
+        if fused:
+            return fused_paged_decode_attention_ref(
+                q, pools[0][i], pools[1][i], pt, lens, k_new, v_new)
+        return paged_decode_attention_ref(q, pools[0][i], pools[1][i], pt,
+                                          lens)
+
+    T = NP * ps
+    kd = pools[0][0][pt.long()].reshape(B, T, Hkv, Dh).transpose(1, 2)
+    vd = pools[1][0][pt.long()].reshape(B, T, Hkv, Dh).transpose(1, 2)
+    qd = q.float()[:, :, None, :]
+    dmask = (torch.arange(T, device=dev)[None, :]
+             <= lens[:, None])[:, None, None, :]
+
+    def pd_library():
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask,
+                                              enable_gqa=True)
+
+    # bytes: the live pages' K and V (every row's pages are distinct), q
+    # in and out, m and l, the table and lengths, and (fused) the new K/V
+    # read and written into the pool
+    attend_bytes = B * NP * ps * Hkv * Dh * 4 * 2 + q.numel() * 2 * 2 \
+        + 2 * B * H * 4 + 4 * (pt.numel() + B)
+    append_bytes = 2 * k_new.numel() * 4 * 2
+    valid_tokens = int((lens + 1).sum().item())
+    flops = 4 * H * Dh * valid_tokens
+    bnd, by = bound(attend_bytes + append_bytes, flops, "float32")
+    s0 = pd_ops.split_launches
+    pd_run()
+    assert pd_ops.split_launches == s0 + 1, f"{arch} paged not split"
+    library_ms = time_ms(torch, pd_library)
+    pd_dev, pd_top = profile_calls(torch, pd_run, 40)[1:]
+    paged = {"G": G, "Hkv": Hkv, "max_abs_err": pd_err,
+             "ms": time_ms(torch, pd_run, iters=40), "device_ms": pd_dev,
+             "plain_ms": time_ms(torch, pd_plain), "bound_ms": bnd,
+             "bound_by": by, "library_ms": library_ms, "chunk_pages": chunk}
+    log("kernels.paged_main", model=arch, shape=f"fused,B={B},live_pages="
+        f"{NP},ps={ps},Hkv={Hkv},Dh={Dh},G={G},q=bf16,pool=f32",
+        tolerance=3e-2, top_kernels_ms_per_call=json.dumps(pd_top),
+        bytes=attend_bytes + append_bytes, peaks=json.dumps(PEAKS_OF),
+        chunks_per_row=json.dumps(chunks_per_row),
+        single_err=f"{single_err:.3e}", blocked_eq_single="bitwise",
+        fused_eq_scatter_attend="bitwise",
+        row_alone_vs_in_batch_of_8_wider_table="bitwise", **fmt(paged))
+
+    # the attend-only arms (kernel_variant="single"/"blocked") on the same
+    # inputs; the plain version is the gather-dense reference
+    arm_bound, arm_by = bound(attend_bytes, flops, "float32")
+    arm_plain_ms = time_ms(torch, lambda: pd_plain(fused=False))
+    arms = {}
+    for variant in ("single", "blocked"):
+        err = (pd_run(variant).float() - paged_decode_attention_ref(
+            q, pools[0][layer[0]], pools[1][layer[0]], pt, lens).float()
+        ).abs().max().item()
+        assert err < 3e-2, f"{arch} paged {variant} err {err}"
+        arms[variant] = {"max_abs_err": err,
+                         "ms": time_ms(torch, lambda: pd_run(variant),
+                                       iters=40),
+                         "plain_ms": arm_plain_ms, "bound_ms": arm_bound,
+                         "bound_by": arm_by, "library_ms": library_ms}
+    log("kernels.paged_arms", model=arch, shape="as paged_main, attend only",
+        **{f"{a}_{k}": v for a, r in arms.items()
+           for k, v in fmt(r).items()})
+    del kd, vd
+    paged["one_chunk"] = kernels_paged_one_chunk(
+        torch, F, rng, pd_ops, fused_paged_decode_attention_ref, q, pools)
+    del pools
+    torch.cuda.empty_cache()
+    return {"flash": flash, "paged": paged, "arms": arms}
+
+
+# ---------------------------------------------------------------------------
+# the MoE family and the rest of the dense family, at full width
+# ---------------------------------------------------------------------------
+
+CUT_LAYERS = 4           # depth of the float32 copies (full width)
+# the engine phases' prompts (words of each; a 131-token shared prefix
+# leads share_a, share_b and late_e) and requests: four and a duplicate
+# of cold_c at once, late_e after the first decode step
+ENGINE_PROMPTS = {"shared": 130, "share_a": (70, True),
+                  "share_b": (120, True), "cold_c": (379, False),
+                  "cold_d": (149, False), "late_e": (40, True)}
+ENGINE_REQUESTS = (("cold_c", "share_a", "share_b", "cold_d", "cold_c_dup"),
+                   ("late_e",))
+
+
+def family_prompts(np, tokenizer, vocab, seed, spec):
+    """Prompts of random words, ``spec`` = {name: (words, share)}: a
+    shared prefix of ``spec["shared"]`` words leads every prompt whose
+    ``share`` is true.  Returns (prompts, the prefix's length)."""
+    words = np.random.default_rng(seed)
+
+    def text(n):
+        return " ".join(f"w{int(x)}" for x in words.integers(0, 10**6, n))
+
+    shared = tokenizer.tokenize(text(spec.pop("shared")), vocab)
+    out = {}
+    for name, (n, share) in spec.items():
+        out[name] = shared + tokenizer.tokenize(text(n), vocab, False) \
+            if share else tokenizer.tokenize(text(n), vocab)
+    return out, len(shared)
+
+
+def time_engine(eng, attr="_decode_paged"):
+    """Wrap an engine's decode step (``attr``) and its admissions with
+    host clocks.  Returns (step seconds, admission seconds, undo)."""
+    step_s, admit_s = [], []
+    orig_decode, orig_admit = getattr(eng, attr), eng._admit_one
+
+    def timed_decode():
+        t0 = time.perf_counter()
+        orig_decode()
+        step_s.append(time.perf_counter() - t0)
+
+    def timed_admit(req):
+        t0 = time.perf_counter()
+        slot = orig_admit(req)
+        admit_s.append(time.perf_counter() - t0)
+        return slot
+
+    setattr(eng, attr, timed_decode)
+    eng._admit_one = timed_admit
+
+    def undo():
+        setattr(eng, attr, orig_decode)
+        eng._admit_one = orig_admit
+
+    return step_s, admit_s, undo
+
+
+def serve_requests(eng, prompts, max_new, first, late=()):
+    """Submit ``first`` at once, then ``late`` after the first decode step;
+    a name ending in ``_dup`` repeats its stem's prompt."""
+    def submit(n):
+        return eng.submit(prompts[n.removesuffix("_dup")],
+                          max_new_tokens=max_new)
+
+    handles = {n: submit(n) for n in first}
+    if late:
+        deadline = time.monotonic() + 300
+        while eng.stats.decode_tokens < 1:
+            assert time.monotonic() < deadline, "engine made no decode step"
+            time.sleep(0.001)
+        handles.update({n: submit(n) for n in late})
+    outs = {n: h.result(timeout=600) for n, h in handles.items()}
+    eng.drain()             # the last step's timer appends after results
+    return outs
+
+
+def paged_variant_counts(pd_ops):
+    """The paged kernel's launches of each variant since the last reset,
+    as {"paged_single": n, "paged_blocked": n, "paged_fused": n}."""
+    return {f"paged_{v}": n for v, n in pd_ops.variant_launches.items()}
+
+
+def serve_checked(torch, eng, prompts, max_new, requests, fa_ops, pd_ops,
+                  plain_calls):
+    """The main path's run of an engine phase: ``requests`` (first, late)
+    served with the launch counts set to 0 just before and read just
+    after.  Checks every output's length, the flash and paged launches, every
+    bf16 flash launch on the tensor cores, a split paged launch where a
+    table passed one chunk, and no plain version.  Returns (outputs,
+    launches, step seconds, admission seconds, run seconds)."""
+    step_s, admit_s, undo = time_engine(eng)
+    n_plain = plain_calls["n"]
+    fa_ops.reset_counts()
+    pd_ops.reset_counts()
+    t_run = time.perf_counter()
+    outs = serve_requests(eng, prompts, max_new, *requests)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = {"flash_attention": fa_ops.launches,
+                "flash_tensor_core": fa_ops.tensor_core_launches,
+                "paged_decode_attention": pd_ops.launches,
+                "paged_split": pd_ops.split_launches,
+                **paged_variant_counts(pd_ops),
+                "plain_calls": plain_calls["n"] - n_plain}
+    undo()
+    chunk = pd_ops.plan_chunk_pages(eng.page_size, eng.model.head_dim)
+    assert all(len(o) == max_new for o in outs.values()), "short output"
+    assert launches["flash_attention"] > 0 \
+        and launches["paged_decode_attention"] > 0, launches
+    assert launches["flash_tensor_core"] == launches["flash_attention"], \
+        "a bf16 flash launch missed the tensor cores"
+    assert launches["paged_fused"] == launches["paged_decode_attention"], \
+        "the engine decoded through an attend-only arm"
+    assert eng.stats.widest_decode_table > chunk \
+        and launches["paged_split"] > 0, \
+        "no paged launch split though a table passed one chunk"
+    assert launches["plain_calls"] == 0, \
+        "a plain version ran on the CUDA path"
+    return outs, launches, step_s, admit_s, run_s
+
+
+def warm_step_inputs(torch, np, eng, rows, batch=None):
+    """One decode step's inputs over ``rows`` of the engine's warm
+    sequences, padded to ``batch`` rows of length -1 if given, as the
+    engine pads: (tokens, page table, lengths), pages reserved."""
+    dev = eng.device
+    kv = eng.kv
+    seqs = list(eng._warm)[:rows]
+    kv.prepare_appends(seqs)
+    batch = batch or len(seqs)
+    n_pages = max(len(kv.sequences[s].page_ids) for s in seqs)
+    pt = np.zeros((batch, n_pages), np.int32)
+    lens = np.full((batch,), -1, np.int32)
+    for i, s in enumerate(seqs):
+        pt[i, :len(kv.sequences[s].page_ids)] = kv.sequences[s].page_ids
+        lens[i] = kv.sequences[s].length
+    tok = torch.arange(batch, dtype=torch.int32, device=dev) + 11
+    return tok, torch.as_tensor(pt).to(dev), torch.as_tensor(lens).to(dev)
+
+
+def step_parity(torch, np, eng, moe=None, rows=4, model=None):
+    """One decode step of ``model`` (the engine's own by default) under
+    impl="cuda" and impl="torch" over copies of the engine's pool: (max
+    abs difference, logit scale, same argmax, and with ``moe`` the top-k
+    expert selections that differ between the two, over every MoE layer
+    and row)."""
+    model = model or eng.model
+    tok, pt, lens = warm_step_inputs(torch, np, eng, rows)
+    logits, routes = {}, {}
+    for impl in ("cuda", "torch"):
+        with (moe_routing(moe) if moe else
+              contextlib.nullcontext()) as rec:
+            lg, _, _ = model.paged_decode_step(
+                tok, eng.kv.k.clone(), eng.kv.v.clone(), pt, lens,
+                impl=impl)
+        assert lg.shape == (len(tok), eng.cfg.padded_vocab) \
+            and bool(torch.isfinite(lg).all()), impl
+        logits[impl] = lg.float()
+        routes[impl] = rec
+    diff = (logits["cuda"] - logits["torch"]).abs().max().item()
+    scale = logits["torch"].abs().max().item()
+    same = torch.equal(logits["cuda"].argmax(-1), logits["torch"].argmax(-1))
+    flips = None
+    if moe:
+        flips = 0
+        for a, b in zip(routes["cuda"], routes["torch"]):
+            ta, tb = (e["top_i"].reshape(-1, e["top_i"].shape[-1]).tolist()
+                      for e in (a, b))
+            flips += sum(len(set(x) - set(y)) for x, y in zip(ta, tb))
+    return diff, scale, same, flips
+
+
+def profile_engine(torch, np, eng, prompt, max_new):
+    """Where a call's time goes, under the profiler: a few decode steps
+    over the engine's warm rows (at most 8, padded to 8 as the engine
+    pads) and two cold chunk prefills of ``prompt`` (padded to the
+    engine's bucket).  {call: (wall ms, device-busy ms, top kernels)}."""
+    dev = eng.device
+    tok, pt, lens = warm_step_inputs(torch, np, eng, 8, batch=8)
+    live = int((lens >= 0).sum().item())
+    pad = -(-len(prompt) // eng._PF_QUANTUM) * eng._PF_QUANTUM
+    T = eng._round_t(pad + max_new)
+    chunk = torch.as_tensor([prompt + [0] * (pad - len(prompt))],
+                            dtype=torch.int32, device=dev)
+    valid = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
+
+    def decode_step():
+        eng.model.paged_decode_step(tok, eng.kv.k, eng.kv.v, pt, lens)
+
+    def prefill_chunk():
+        eng.model.prefill_with_cache(chunk, eng._chunk_view(T),
+                                     valid_len=valid)
+
+    return {f"decode_step(B=8,{live} live rows)":
+            profile_calls(torch, decode_step, 5),
+            f"chunk_prefill(S={pad},T={T})":
+            profile_calls(torch, prefill_chunk, 2)}
+
+
+def cut_copy(eng, layers):
+    """The engine's first ``layers`` layers with its embedding, final norm
+    and head, as a float32 state_dict (bf16 -> f32 is exact)."""
+    return {k: v.float() for k, v in eng.model.state_dict().items()
+            if not k.startswith("blocks.") or int(k.split(".")[1]) < layers}
+
+
+@contextlib.contextmanager
+def moe_routing(moe):
+    """Collect one entry per ``moe_ffn`` call, from any thread, out of what
+    ``moe._dispatch_indices`` takes and gives: ``tokens`` (G*Ng),
+    ``groups`` (G), ``capacity``, ``top_i`` (G, Ng, K), the experts
+    chosen, and ``dropped``, the routed slots past their expert's
+    capacity, as a device tensor (read after the run: no sync)."""
+    rec, inner = [], moe._dispatch_indices
+
+    def spy(top_idx, num_experts, capacity):
+        pos, keep = inner(top_idx, num_experts, capacity)
+        G, Ng = top_idx.shape[:2]
+        rec.append({"tokens": G * Ng, "groups": G, "capacity": capacity,
+                    "top_i": top_idx, "dropped": (~keep).sum()})
+        return pos, keep
+
+    moe._dispatch_indices = spy
+    try:
+        yield rec
+    finally:
+        moe._dispatch_indices = inner
+
+
+def routing_counts(torch, rec, n_moe):
+    """Group ``moe_routing`` entries into model calls (``n_moe`` layers
+    each): every prefill chunk's and decode step's [slots (its padded
+    tokens), capacity, routed slots dropped over its layers].  A decode
+    step's groups are one token each."""
+    calls = [rec[i:i + n_moe] for i in range(0, len(rec), n_moe)]
+    assert all(len({(e["tokens"], e["capacity"]) for e in c}) == 1
+               for c in calls), "a model call's layers disagree"
+    dropped = torch.stack([torch.stack([e["dropped"] for e in c]).sum()
+                           for c in calls]).tolist()
+    out = {"prefill_chunks": [], "decode_steps": []}
+    for c, d in zip(calls, dropped):
+        kind = "decode_steps" if c[0]["tokens"] == c[0]["groups"] \
+            else "prefill_chunks"
+        out[kind].append([c[0]["tokens"], c[0]["capacity"], d])
+    return out
+
+
+def free_engine(torch, *engines):
+    for e in engines:
+        e.shutdown()
+        e.unload()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_phases(torch, np, get_config, tokenizer, InferenceEngine, moe,
+               fa_ops, pd_ops, plain_calls):
+    """deepseek-moe-16b at full width in bf16 (random weights from seed 0,
+    engine defaults): the qwen3 phase's six requests through flash
+    prefill, the MoE layers and the fused paged decode, with the routing
+    counts; its profile; the CUDA step against the plain step (bf16, and
+    float32 on a depth-cut copy); batch invariance; a prompt cold and over
+    a shared prefix.  Returns the kernels' launches in the run."""
+    cfg = get_config("deepseek-moe-16b")
+    n_moe = cfg.num_layers - cfg.moe.first_dense_layers
+    eng = InferenceEngine(cfg, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    load_s = eng.load()
+    prompts, n_shared = family_prompts(np, tokenizer, cfg.vocab_size, 3,
+                                       dict(ENGINE_PROMPTS))
+    max_new = 32
+    with moe_routing(moe) as rec:
+        outs, launches, step_s, admit_s, run_s = serve_checked(
+            torch, eng, prompts, max_new, ENGINE_REQUESTS, fa_ops, pd_ops,
+            plain_calls)
+    st = eng.stats
+    assert outs["cold_c_dup"] == outs["cold_c"]
+    assert st.prefix_hits >= 1 and st.coalesced_requests >= 1 \
+        and st.peak_batch >= 2, st.as_dict()
+    routing = routing_counts(torch, rec, n_moe)
+    del rec
+    decode_s = sum(step_s)
+    m = cfg.moe
+    log("moe.run", model=f"deepseek-moe-16b(full width, {cfg.num_layers} "
+        f"layers: {m.first_dense_layers} dense + {n_moe} MoE, "
+        f"{m.num_experts} experts top-{m.top_k} + {m.num_shared_experts} "
+        f"shared, {cfg.num_heads}/{cfg.num_kv_heads} heads, Dh "
+        f"{cfg.resolved_head_dim})", dtype="bf16",
+        params_gb=f"{eng.param_bytes() / 1e9:.3f}", requests=len(outs),
+        admitted=len(admit_s), tokens_each=max_new, shared_prefix=n_shared,
+        prefix_hits=st.prefix_hits, coalesced=st.coalesced_requests,
+        peak_batch=st.peak_batch, decode_steps=len(step_s),
+        decode_tokens=st.decode_tokens, load_s=f"{load_s:.3f}",
+        run_s=f"{run_s:.3f}",
+        mean_step_ms=f"{1e3 * decode_s / len(step_s):.3f}",
+        prefill_ms_per_request=f"{1e3 * sum(admit_s) / len(admit_s):.3f}",
+        decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
+        max_memory_allocated_gib=
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        allocated_before_load_gib=f"{before_gib:.3f}",
+        flash_launches=launches["flash_attention"],
+        flash_tensor_core_launches=launches["flash_tensor_core"],
+        paged_launches=launches["paged_decode_attention"],
+        paged_split_launches=launches["paged_split"],
+        widest_table_pages=st.widest_decode_table,
+        plain_calls=launches["plain_calls"], routing=json.dumps(routing))
+
+    # where a step's time goes: a decode step over the 5 warm rows padded
+    # to 8, and the 380-token cold chunk prefill
+    fields = {}
+    for kind, (call, (wall, busy, top)) in zip(
+            ("decode", "prefill"),
+            profile_engine(torch, np, eng, prompts["cold_c"],
+                           max_new).items()):
+        fields.update({f"{kind}_call": call, f"{kind}_wall_ms": f"{wall:.3f}",
+                       f"{kind}_device_busy_ms": f"{busy:.3f}",
+                       f"{kind}_busy_share": f"{busy / wall:.3f}",
+                       f"{kind}_top_kernels_ms": json.dumps(top)})
+    log("moe.profile", **fields)
+
+    # the CUDA step against the plain step: bf16 at full depth (logged,
+    # with the router's top-k selections that differ), then float32 on a
+    # depth-cut copy (asserted)
+    diff, scale, same, flips = step_parity(torch, np, eng, moe)
+    parity = {"bf16": {"max_abs_diff": f"{diff:.4e}",
+                       "logit_scale": f"{scale:.4e}", "same_argmax": same,
+                       "topk_selections_differing": flips}}
+    eng.release_warm()
+    alone = eng.generate([prompts["cold_c"]], max_new_tokens=max_new)[0]
+    e32 = InferenceEngine(cfg.replace(dtype="float32",
+                                      num_layers=CUT_LAYERS), seed=0)
+    e32.load(cut_copy(eng, CUT_LAYERS))
+    outs32 = serve_requests(e32, prompts, max_new, *ENGINE_REQUESTS)
+    assert all(len(o) == max_new for o in outs32.values()), "short output"
+    diff, scale, same, flips = step_parity(torch, np, e32, moe)
+    assert diff <= 1e-3 * scale, (diff, scale)
+    parity["float32"] = {"layers": CUT_LAYERS, "max_abs_diff": f"{diff:.4e}",
+                         "logit_scale": f"{scale:.4e}", "same_argmax": same,
+                         "topk_selections_differing": flips}
+    log("moe.step_parity", rows=4, tolerance="float32 1e-3*scale; bf16 "
+        "logged", arms=json.dumps(parity))
+
+    # batch invariance: at B <= 16 a decode group is one token, so the
+    # routing cannot depend on the batch; asserted on the float32 copy,
+    # logged in bf16 (a near-tied router choice may flip)
+    e32.release_warm()
+    alone32 = e32.generate([prompts["cold_c"]], max_new_tokens=max_new)[0]
+    assert alone32 == outs32["cold_c"], \
+        ("float32 MoE decode depends on the batch",
+         first_difference(alone32, outs32["cold_c"]))
+    log("moe.batch_invariance", request="cold_c", peak_batch=st.peak_batch,
+        bf16=("equal" if alone == outs["cold_c"] else "differ"),
+        bf16_first_differing_token=first_difference(alone, outs["cold_c"]),
+        float32_layers=CUT_LAYERS,
+        float32=("equal" if alone32 == outs32["cold_c"] else "differ"),
+        float32_first_differing_token=first_difference(alone32,
+                                                       outs32["cold_c"]))
+
+    # the same prompt cold, then admitted over a shared prefix (its donor
+    # share_b), on the float32 copy: the chunks' capacities differ
+    e32.release_warm()
+    with moe_routing(moe) as rec:
+        cold_out = e32.generate([prompts["share_a"]], max_new_tokens=max_new)
+        e32.release_warm()
+        e32.generate([prompts["share_b"]], max_new_tokens=1)
+        hits = e32.stats.prefix_hits
+        warm_out = e32.generate([prompts["share_a"]], max_new_tokens=max_new)
+    assert e32.stats.prefix_hits == hits + 1, "share_a did not share"
+    chunks = routing_counts(torch, rec, CUT_LAYERS - cfg.moe.first_dense_layers
+                            )["prefill_chunks"]
+    log("moe.prefix_sharing", request="share_a",
+        prompt_tokens=len(prompts["share_a"]), shared_prefix=n_shared,
+        float32_layers=CUT_LAYERS,
+        cold_chunk=json.dumps(chunks[0]), warm_chunk=json.dumps(chunks[-1]),
+        chunk_fields="[slots, capacity, dropped]",
+        tokens=("equal" if cold_out == warm_out else "differ"),
+        first_differing_token=first_difference(cold_out[0], warm_out[0]))
+    free_engine(torch, e32, eng)
+    return launches
+
+
+def dense_family_phase(torch, np, arch, get_config, tokenizer,
+                       InferenceEngine, fa_ops, pd_ops, da_ops, plain_calls):
+    """``arch`` at full width in bf16 (random weights from seed 0, engine
+    defaults): four requests of 100-300 tokens, 16 new each, one sharing
+    a prefix, through flash prefill and the fused paged decode; the CUDA
+    step against the plain step; then a float32 copy cut in depth served
+    on the paged path and on the dense view (decode attention), whose
+    greedy tokens must agree.  Returns the kernels' launches."""
+    cfg = get_config(arch)
+    tag = "dense." + arch.replace("-", "_").replace(".", "_")
+    eng = InferenceEngine(cfg, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    load_s = eng.load()
+    prompts, n_shared = family_prompts(
+        np, tokenizer, cfg.vocab_size, 5,
+        {"shared": 100, "share_a": (80, True), "share_b": (190, True),
+         "cold_c": (250, False), "cold_d": (120, False)})
+    assert all(100 <= len(p) <= 300 for p in prompts.values())
+    max_new = 16
+    outs, launches, step_s, admit_s, _ = serve_checked(
+        torch, eng, prompts, max_new, (tuple(prompts), ()), fa_ops, pd_ops,
+        plain_calls)
+    st = eng.stats
+    assert st.prefix_hits >= 1, st.as_dict()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params_gb = eng.param_bytes() / 1e9
+    diff, scale, same, _ = step_parity(torch, np, eng)
+    assert diff <= 5e-2 * scale, (diff, scale)
+
+    # a float32 copy cut in depth: the paged path against the dense view
+    cut = cfg.replace(dtype="float32", num_layers=CUT_LAYERS)
+    sd = cut_copy(eng, CUT_LAYERS)
+    free_engine(torch, eng)
+    arms = {}
+    da_ops.reset_counts()
+    for paged in (True, False):
+        e = InferenceEngine(cut, seed=0, paged_decode=paged)
+        e.load(sd)
+        arms[paged] = serve_requests(e, prompts, max_new, tuple(prompts))
+        free_engine(torch, e)
+    launches["decode_attention_dense_view"] = da_ops.launches
+    assert arms[True] == arms[False], "paged and dense-view tokens differ"
+    assert da_ops.launches > 0, "the dense view launched no decode kernel"
+    decode_s = sum(step_s)
+    log(tag, model=f"{arch}(full width, {cfg.num_layers} layers, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, G="
+        f"{cfg.num_heads // cfg.num_kv_heads}, Dh "
+        f"{cfg.resolved_head_dim}, "
+        f"{'tied' if cfg.tie_embeddings else 'untied'} head)", dtype="bf16",
+        params_gb=f"{params_gb:.3f}", requests=len(outs),
+        tokens_each=max_new, shared_prefix=n_shared,
+        prefix_hits=st.prefix_hits, peak_batch=st.peak_batch,
+        decode_steps=len(step_s), load_s=f"{load_s:.3f}",
+        mean_step_ms=f"{1e3 * decode_s / len(step_s):.3f}",
+        prefill_ms_per_request=f"{1e3 * sum(admit_s) / len(admit_s):.3f}",
+        decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
+        max_memory_allocated_gib=f"{peak:.3f}",
+        allocated_before_load_gib=f"{before_gib:.3f}",
+        flash_launches=launches["flash_attention"],
+        flash_tensor_core_launches=launches["flash_tensor_core"],
+        paged_launches=launches["paged_decode_attention"],
+        paged_split_launches=launches["paged_split"],
+        widest_table_pages=st.widest_decode_table,
+        plain_calls=launches["plain_calls"],
+        step_parity=json.dumps({"max_abs_diff": f"{diff:.4e}",
+                                "logit_scale": f"{scale:.4e}",
+                                "same_argmax": same,
+                                "tolerance": "5e-2*scale"}),
+        float32_layers=CUT_LAYERS, paged_vs_dense_view="equal",
+        dense_view_decode_launches=da_ops.launches)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1571,7 +2233,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.engine import tokenizer
     from repro_torch.engine.engine import InferenceEngine
-    from repro_torch.engine.models import build_model, layers, rglru
+    from repro_torch.engine.models import build_model, layers, moe, rglru
     from repro_torch.kernels import build
     from repro_torch.kernels.common import NEG_INF
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -1699,177 +2361,41 @@ def main() -> int:
         "f32/bf16 x window 0/24",
         vs_plain="ok", no_valid_key_row="mean(V)")
 
-    kernels = []
-    # flash at the engine's prefill shape: a 512-token chunk after a
-    # 32-token cached prefix, bf16
-    B, Sq, Skv, H, Hkv, Dh = 1, 512, 544, 16, 8, 128
-    q = t(rng.normal(size=(B, Sq, H, Dh)), torch.bfloat16)
-    k = t(rng.normal(size=(B, Skv, Hkv, Dh)), torch.bfloat16)
-    v = t(rng.normal(size=(B, Skv, Hkv, Dh)), torch.bfloat16)
-    qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32,
-                      device=dev).expand(B, Sq).contiguous()
-    kvp = torch.arange(Skv, dtype=torch.int32, device=dev).expand(
-        B, Skv).contiguous()
+    # flash and the paged kernel at the served models' head groupings
+    at = {arch: kernels_at_grouping(torch, F, rng, arch, H, Hkv)
+          for arch, H, Hkv in GROUPINGS}
+    main_arch = GROUPINGS[0][0]
+    log("kernels.paged_groups", Dh=128, pool="f32", q="bf16",
+        checks="single vs plain, blocked==single bitwise, fused=="
+        "scatter-then-attend bitwise, row alone vs in a batch of 8 "
+        "bitwise, padding row pinned", tolerance=3e-2,
+        **{f"{kind}_{a.replace('-', '_').replace('.', '_')}":
+           json.dumps(fmt(r[kind])) for a, r in at.items()
+           if a != main_arch for kind in ("paged", "flash")})
 
-    def flash_run():
-        return fa_ops.flash_attention(q, k, v, q_positions=qp,
-                                      kv_positions=kvp)
-
-    def flash_plain():
-        return flash_attention_ref(q, k, v, q_positions=qp,
-                                   kv_positions=kvp)
-
-    mask = (kvp[:, None, None, :] <= qp[:, None, :, None])   # (B,1,Sq,Skv)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-    def flash_library():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                              enable_gqa=True)
-
-    n_tc = fa_ops.tensor_core_launches
-    err = (flash_run().float() - flash_plain().float()).abs().max().item()
-    assert err < 3e-2, f"flash main shape err {err}"
-    assert fa_ops.tensor_core_launches == n_tc + 1, "missed the tensor cores"
-    lib_err = (flash_library().transpose(1, 2).float()
-               - flash_plain().float()).abs().max().item()
-    pairs = int(mask.sum().item())
-    fl_bytes = 2 * (q.numel() * 2) + 2 * (k.numel() * 2) \
-        + 4 * (qp.numel() + kvp.numel())
-    fl_bound, fl_by = bound(fl_bytes, 4 * Dh * H * pairs, "bfloat16")
-    fa_ms = time_ms(torch, flash_run)
-    fa_dev = profile_calls(torch, flash_run, 20)[1]
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
-        "launches": None, "max_abs_err": err, "ms": fa_ms,
-        "device_ms": fa_dev, "plain_ms": time_ms(torch, flash_plain),
-        "bound_ms": fl_bound, "bound_by": fl_by,
-        "library_ms": time_ms(torch, flash_library)})
-    log("kernels.flash_main", shape=f"B={B},Sq={Sq},Skv={Skv},H={H},"
-        f"Hkv={Hkv},Dh={Dh},bf16", max_abs_err=f"{err:.3e}", tolerance=3e-2,
-        sdpa_err=f"{lib_err:.3e}", ms=f"{fa_ms:.4f}",
-        device_ms=f"{fa_dev:.4f}",
-        plain_ms=f"{kernels[-1]['plain_ms']:.4f}",
-        library_ms=f"{kernels[-1]['library_ms']:.4f}",
-        bound_ms=f"{fl_bound:.5f}", bound_by=fl_by, body="tensor cores")
-
-    # fused paged decode at the engine's full-width decode step: B=8 rows
-    # of 65 live pages, page 8, f32 pool, bf16 q; four layers' pools are
-    # cycled so each launch finds its pages out of L2, as a step does
-    B, NP, ps, H, Hkv, Dh, NL = 8, 65, 8, 16, 8, 128, 4
-    P = 1024
-    q = t(rng.normal(size=(B, H, Dh)), torch.bfloat16)
-    pools = [t(rng.normal(size=(NL, P, ps, Hkv, Dh)), torch.bfloat16).float()
-             for _ in range(2)]
-    pt_d = torch.as_tensor(rng.permutation(P)[:B * NP].reshape(B, NP),
-                           dtype=torch.int32).to(dev)
-    lens_d = torch.full((B,), NP * ps - 3, dtype=torch.int32, device=dev)
-    k_new = t(rng.normal(size=(B, Hkv, Dh)), torch.bfloat16).float()
-    v_new = t(rng.normal(size=(B, Hkv, Dh)), torch.bfloat16).float()
-    ks, vs = scatter_append_ref(pools[0][0].clone(), pools[1][0].clone(),
-                                pt_d, lens_d, k_new, v_new)
-    ref = paged_decode_attention_ref(q, ks, vs, pt_d, lens_d)
-    out, k0, _ = pd_ops.fused_paged_decode_attention(
-        q, pools[0][0], pools[1][0], pt_d, lens_d, k_new, v_new)
-    pd_err = (out.float() - ref.float()).abs().max().item()
-    assert pd_err < 3e-2 and torch.equal(k0, ks), f"paged main err {pd_err}"
-    layer = [0]
-
-    def pd_run():
-        i = layer[0] = (layer[0] + 1) % NL
-        return pd_ops.fused_paged_decode_attention(
-            q, pools[0][i], pools[1][i], pt_d, lens_d, k_new, v_new)
-
-    def pd_plain():
-        i = layer[0] = (layer[0] + 1) % NL
-        return fused_paged_decode_attention_ref(
-            q, pools[0][i], pools[1][i], pt_d, lens_d, k_new, v_new)
-
-    T = NP * ps
-    kd = pools[0][0][pt_d.long()].reshape(B, T, Hkv, Dh).transpose(1, 2)
-    vd = pools[1][0][pt_d.long()].reshape(B, T, Hkv, Dh).transpose(1, 2)
-    qd = q.float()[:, :, None, :]
-    dmask = (torch.arange(T, device=dev)[None, :]
-             <= lens_d[:, None])[:, None, None, :]
-
-    def pd_library():
-        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask,
-                                              enable_gqa=True)
-
-    # the split's chunk plan ignores B and the table's width: rows of
-    # several lengths, alone under their own tables and together under a
-    # table wider than every row, give the same bits
-    chunk = pd_ops.plan_chunk_pages(ps, Dh)
-    chunks_per_row = [pd_ops.row_chunks(int(n), ps, NP, chunk)
-                      for n in lens_d.tolist()]
-    var_lens = [NP * ps - 3, 2, chunk * ps, chunk * ps - 1, 20 * ps + 1,
-                -1, 3 * chunk * ps + 5, 40 * ps + 7]
-    wide = torch.as_tensor(rng.permutation(P)[:B * (NP + 7)].reshape(
-        B, NP + 7), dtype=torch.int32).to(dev)
-    var_d = torch.as_tensor(var_lens, dtype=torch.int32, device=dev)
-    s0 = pd_ops.split_launches
-    batch = pd_ops.paged_decode_attention(q, pools[0][1], pools[1][1], wide,
-                                          var_d, return_lse=True)
-    for i, n in enumerate(var_lens):
-        own = max(1, n // ps + 1)
-        one = pd_ops.paged_decode_attention(
-            q[i:i + 1].contiguous(), pools[0][1], pools[1][1],
-            wide[i:i + 1, :own].contiguous(), var_d[i:i + 1].contiguous(),
-            return_lse=True)
-        assert all(torch.equal(a[0], b[i]) for a, b in zip(one, batch)), \
-            f"paged row {i} depends on its batch"
-    assert pd_ops.split_launches > s0, "the wide table was not split"
-    live = int(B * NP)                   # distinct live pages, all rows
-    pd_bytes = live * ps * Hkv * Dh * 4 * 2 + q.numel() * 2 * 2 \
-        + 2 * B * H * 4 + 4 * (pt_d.numel() + B) + 2 * k_new.numel() * 4 * 2
-    valid_tokens = int((lens_d + 1).sum().item())
-    pd_bound, pd_by = bound(pd_bytes, 4 * H * Dh * valid_tokens, "float32")
-    pd_ms = time_ms(torch, pd_run, iters=40)
-    pd_dev, pd_top = profile_calls(torch, pd_run, 40)[1:]
-    kernels.append({
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-        "replaces":
-            "src/repro/kernels/paged_decode_attention/kernel.py:375",
-        "launches": None, "max_abs_err": pd_err, "ms": pd_ms,
-        "device_ms": pd_dev, "plain_ms": time_ms(torch, pd_plain),
-        "bound_ms": pd_bound, "bound_by": pd_by,
-        "library_ms": time_ms(torch, pd_library),
-        "chunk_pages": chunk})
-    log("kernels.paged_main", shape=f"fused,B={B},live_pages={NP},ps={ps},"
-        f"Hkv={Hkv},Dh={Dh},G={H // Hkv},q=bf16,pool=f32",
-        max_abs_err=f"{pd_err:.3e}", tolerance=3e-2, ms=f"{pd_ms:.4f}",
-        device_ms=f"{pd_dev:.4f}", top_kernels_ms_per_call=json.dumps(pd_top),
-        plain_ms=f"{kernels[-1]['plain_ms']:.4f}",
-        library_ms=f"{kernels[-1]['library_ms']:.4f}",
-        bound_ms=f"{pd_bound:.5f}", bound_by=pd_by,
-        bytes=pd_bytes, peaks=json.dumps(PEAKS_OF), chunk_pages=chunk,
-        chunks_per_row=json.dumps(chunks_per_row),
-        row_alone_vs_in_batch_of_8_wider_table="bitwise")
-
-    # the attend-only arms (kernel_variant="single"/"blocked") on the same
-    # inputs; the plain version is the gather-dense reference
-    def arm(variant):
-        def run():
-            i = layer[0] = (layer[0] + 1) % NL
-            return pd_ops.paged_decode_attention(
-                q, pools[0][i], pools[1][i], pt_d, lens_d, variant=variant)
-        return run
-
-    def arm_plain():
-        i = layer[0] = (layer[0] + 1) % NL
-        return paged_decode_attention_ref(q, pools[0][i], pools[1][i], pt_d,
-                                          lens_d)
-
-    log("kernels.paged_arms", shape="as paged_main, attend only",
-        single_ms=f"{time_ms(torch, arm('single'), iters=40):.4f}",
-        blocked_ppb4_ms=f"{time_ms(torch, arm('blocked'), iters=40):.4f}",
-        plain_ms=f"{time_ms(torch, arm_plain):.4f}")
-    kernels[-1]["one_chunk"] = kernels_paged_one_chunk(
-        torch, F, rng, pd_ops, fused_paged_decode_attention_ref, q, pools)
-    del pools, kd, vd, ks, vs
-    torch.cuda.empty_cache()
+    main_at = at.pop(main_arch)
+    csrc, tpu = "src/repro_torch/kernels/csrc", "src/repro/kernels"
+    kernels = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": f"{csrc}/flash_attention.cu",
+         "replaces": f"{tpu}/flash_attention/kernel.py:76",
+         "launches": None, **main_at["flash"],
+         "groups": {a: r["flash"] for a, r in at.items()}},
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": f"{csrc}/paged_decode_attention.cu",
+         "replaces": f"{tpu}/paged_decode_attention/kernel.py:375",
+         "launches": None, **main_at["paged"],
+         "groups": {a: r["paged"] for a, r in at.items()}}]
+    # the attend-only arms replace the JAX package's single- and
+    # several-page kernels: entries of their own, appended last
+    arm_entries = [
+        {"name": f"paged_decode_attention_{variant}", "route": "cuda",
+         "source": f"{csrc}/paged_decode_attention.cu",
+         "replaces": f"{tpu}/paged_decode_attention/kernel.py:{line}",
+         "launches": None, **main_at["arms"][variant],
+         "groups": {a: r["arms"][variant] for a, r in at.items()}}
+        for variant, line in (("single", 106), ("blocked", 317))]
+    del at, main_at
 
     kernels.append(kernels_decode(torch, F, t, rng, da_ops,
                                   decode_attention_ref, lse_combine, NEG_INF))
@@ -1890,22 +2416,10 @@ def main() -> int:
     eng = InferenceEngine(cfg, seed=0)
     torch.cuda.reset_peak_memory_stats()
     load_s = eng.load()
-    words = np.random.default_rng(3)
-
-    def text(n):
-        return " ".join(f"w{int(x)}" for x in words.integers(0, 10**6, n))
-
-    vocab = cfg.vocab_size
-    shared = tokenizer.tokenize(text(130), vocab)        # 131 tokens
-    prompts = {
-        "share_a": shared + tokenizer.tokenize(text(70), vocab, False),
-        "share_b": shared + tokenizer.tokenize(text(120), vocab, False),
-        "cold_c": tokenizer.tokenize(text(379), vocab),
-        "cold_d": tokenizer.tokenize(text(149), vocab),
-        "late_e": shared + tokenizer.tokenize(text(40), vocab, False),
-    }
+    prompts, n_shared = family_prompts(np, tokenizer, cfg.vocab_size, 3,
+                                       dict(ENGINE_PROMPTS))
     assert all(100 <= len(p) <= 400 for p in prompts.values())
-    assert len(shared) % eng.page_size != 0
+    assert n_shared % eng.page_size != 0
     max_new = 32
 
     # count the plain versions: none may run on the CUDA path
@@ -1927,61 +2441,20 @@ def main() -> int:
     lru_ops.linear_scan_ref = counted(lru_ops.linear_scan_ref)
     rglru.linear_scan_ref = counted(rglru.linear_scan_ref)
 
-    step_s, admit_s = [], []
-    orig_decode, orig_admit = eng._decode_paged, eng._admit_one
-
-    def timed_decode():
-        t0 = time.perf_counter()
-        orig_decode()
-        step_s.append(time.perf_counter() - t0)
-
-    def timed_admit(req):
-        t0 = time.perf_counter()
-        slot = orig_admit(req)
-        admit_s.append(time.perf_counter() - t0)
-        return slot
-
-    eng._decode_paged, eng._admit_one = timed_decode, timed_admit
-
-    def serve(eng):
-        """Four requests and a duplicate, then one more after the first
-        decode step."""
-        handles = {n: eng.submit(prompts[n], max_new_tokens=max_new)
-                   for n in ("cold_c", "share_a", "share_b", "cold_d")}
-        handles["dup_c"] = eng.submit(prompts["cold_c"],
-                                      max_new_tokens=max_new)
-        deadline = time.monotonic() + 300
-        while eng.stats.decode_tokens < 1:
-            assert time.monotonic() < deadline, "engine made no decode step"
-            time.sleep(0.001)
-        handles["late_e"] = eng.submit(prompts["late_e"],
-                                       max_new_tokens=max_new)
-        outs = {n: h.result(timeout=600) for n, h in handles.items()}
-        eng.drain()         # the last step's timer appends after results
-        return outs
-
-    fa_ops.reset_counts()
-    pd_ops.reset_counts()
-    t_run = time.perf_counter()
-    outs = serve(eng)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t_run
-    fa_launches, pd_launches = fa_ops.launches, pd_ops.launches
-    pd_split = pd_ops.split_launches
+    outs, launches, step_s, admit_s, run_s = serve_checked(
+        torch, eng, prompts, max_new, ENGINE_REQUESTS, fa_ops, pd_ops,
+        plain_calls)
+    fa_launches = launches["flash_attention"]
+    pd_launches = launches["paged_decode_attention"]
+    pd_split = launches["paged_split"]
     kernels[0]["launches"] = fa_launches
-    kernels[0]["tensor_core_launches"] = fa_ops.tensor_core_launches
+    kernels[0]["tensor_core_launches"] = launches["flash_tensor_core"]
     kernels[1]["launches"] = pd_launches
     kernels[1]["split_launches"] = pd_split
     st = eng.stats
-    assert all(len(o) == max_new for o in outs.values()), "short output"
-    assert outs["dup_c"] == outs["cold_c"]
+    assert outs["cold_c_dup"] == outs["cold_c"]
     assert st.prefix_hits >= 1 and st.coalesced_requests >= 1 \
         and st.peak_batch >= 2, st.as_dict()
-    assert fa_launches > 0 and pd_launches > 0, (fa_launches, pd_launches)
-    assert fa_ops.tensor_core_launches == fa_launches, \
-        "a bf16 flash launch missed the tensor cores"
-    assert pd_split > 0, "no paged decode launch was split"
-    assert plain_calls["n"] == 0, "a plain version ran on the CUDA path"
     n_steps = len(step_s)
     admitted = len(admit_s)
     log("engine.run", model="qwen3-1.7b(full width, 28 layers)",
@@ -1996,41 +2469,18 @@ def main() -> int:
         mean_step_ms=f"{1e3 * decode_s / n_steps:.3f}",
         prefill_ms_per_request=f"{1e3 * sum(admit_s) / admitted:.3f}",
         flash_launches=fa_launches,
-        flash_tensor_core_launches=fa_ops.tensor_core_launches,
+        flash_tensor_core_launches=launches["flash_tensor_core"],
         flash_launches_per_request=f"{fa_launches / admitted:.1f}",
         paged_launches=pd_launches, paged_split_launches=pd_split,
         paged_launches_per_step=f"{pd_launches / n_steps:.1f}",
         max_memory_allocated_gib=
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
-        plain_calls=plain_calls["n"])
+        plain_calls=launches["plain_calls"])
 
     # one decode step under impl="cuda" and under impl="torch" over
     # copies of the same pool: bf16 activations through 28 layers, the
     # plain path rounding probs to bf16 before PV
-    eng._decode_paged, eng._admit_one = orig_decode, orig_admit
-    kv = eng.kv
-    seqs = list(eng._warm)[:4]
-    kv.prepare_appends(seqs)
-    n_pages = max(len(kv.sequences[s].page_ids) for s in seqs)
-    pt_np = np.zeros((4, n_pages), np.int32)
-    for i, s in enumerate(seqs):
-        pt_np[i, :len(kv.sequences[s].page_ids)] = kv.sequences[s].page_ids
-    lens_step = torch.tensor([kv.sequences[s].length for s in seqs],
-                             dtype=torch.int32, device=dev)
-    tok_step = torch.tensor([11, 12, 13, 14], dtype=torch.int32, device=dev)
-    pt_step = torch.as_tensor(pt_np).to(dev)
-    logits = {}
-    for impl in ("cuda", "torch"):
-        lg, _, _ = eng.model.paged_decode_step(
-            tok_step, kv.k.clone(), kv.v.clone(), pt_step, lens_step,
-            impl=impl)
-        assert lg.shape == (4, cfg.padded_vocab) and bool(
-            torch.isfinite(lg).all()), impl
-        logits[impl] = lg.float()
-    diff = (logits["cuda"] - logits["torch"]).abs().max().item()
-    scale = logits["torch"].abs().max().item()
-    same_argmax = torch.equal(logits["cuda"].argmax(-1),
-                              logits["torch"].argmax(-1))
+    diff, scale, same_argmax = step_parity(torch, np, eng)[:3]
     assert diff <= 5e-2 * scale, (diff, scale)
     log("engine.step_parity", rows=4, max_abs_diff=f"{diff:.4e}",
         logit_scale=f"{scale:.4e}", tolerance="5e-2*scale",
@@ -2039,57 +2489,19 @@ def main() -> int:
     # difference past f32 rounding is a fault, not bf16 rounding
     m32 = build_model(cfg.replace(dtype="float32"), device=dev)
     m32.load_state_dict(eng.model.state_dict())        # bf16 -> f32, exact
-    logits = {}
-    for impl in ("cuda", "torch"):
-        lg, _, _ = m32.paged_decode_step(
-            tok_step, kv.k.clone(), kv.v.clone(), pt_step, lens_step,
-            impl=impl)
-        assert bool(torch.isfinite(lg).all()), impl
-        logits[impl] = lg
+    diff, scale, same_argmax = step_parity(torch, np, eng, model=m32)[:3]
     del m32
-    diff = (logits["cuda"] - logits["torch"]).abs().max().item()
-    scale = logits["torch"].abs().max().item()
     assert diff <= 1e-3 * scale, (diff, scale)
     log("engine.step_parity", dtype="float32", rows=4,
         max_abs_diff=f"{diff:.4e}", logit_scale=f"{scale:.4e}",
-        tolerance="1e-3*scale", same_argmax=torch.equal(
-            logits["cuda"].argmax(-1), logits["torch"].argmax(-1)))
-    del logits
+        tolerance="1e-3*scale", same_argmax=same_argmax)
 
     # where a step's time goes: the profiler's device kernels over a few
     # decode steps (the 5 warm rows padded to 8, as the engine pads) and
     # over one 384-token cold chunk prefill
-    seqs = list(eng._warm)[:8]
-    kv.prepare_appends(seqs)
-    n_pages = max(len(kv.sequences[s].page_ids) for s in seqs)
-    pt_np = np.zeros((8, n_pages), np.int32)
-    lens_np = np.full((8,), -1, np.int32)
-    for i, s in enumerate(seqs):
-        ids = kv.sequences[s].page_ids
-        pt_np[i, :len(ids)] = ids
-        lens_np[i] = kv.sequences[s].length
-    pt_step = torch.as_tensor(pt_np).to(dev)
-    lens_step = torch.as_tensor(lens_np).to(dev)
-    tok_step = torch.arange(8, dtype=torch.int32, device=dev) + 11
-
-    def decode_step():
-        eng.model.paged_decode_step(tok_step, kv.k, kv.v, pt_step,
-                                    lens_step)
-
-    cold = prompts["cold_c"]                     # 380 tokens, padded to 384
-    chunk = torch.as_tensor([cold + [0] * (384 - len(cold))],
-                            dtype=torch.int32, device=dev)
-
-    def prefill_chunk():
-        eng.model.prefill_with_cache(
-            chunk, eng._chunk_view(416),
-            valid_len=torch.tensor([len(cold)], dtype=torch.int32,
-                                   device=dev))
-
-    for what, fn, n in (("decode_step(B=8)", decode_step, 5),
-                        ("chunk_prefill(S=384,T=416)", prefill_chunk, 2)):
-        wall_ms, busy_ms, top = profile_calls(torch, fn, n)
-        log("engine.profile", call=what, calls=n,
+    for what, (wall_ms, busy_ms, top) in profile_engine(
+            torch, np, eng, prompts["cold_c"], max_new).items():
+        log("engine.profile", call=what,
             wall_ms_per_call=f"{wall_ms:.3f}",
             device_busy_ms_per_call=f"{busy_ms:.3f}",
             device_busy_share=f"{busy_ms / wall_ms:.3f}",
@@ -2107,7 +2519,7 @@ def main() -> int:
     # batch's row count, so the result is logged, not asserted
     e32 = InferenceEngine(cfg.replace(dtype="float32"), seed=0)
     e32.load(eng.model.state_dict())                   # bf16 -> f32, exact
-    outs32 = serve(e32)
+    outs32 = serve_requests(e32, prompts, max_new, *ENGINE_REQUESTS)
     alone32 = e32.generate([prompts["cold_c"]], max_new_tokens=max_new)[0]
     assert all(len(o) == max_new for o in outs32.values()), "short output"
     log("engine.batch_invariance", dtype="float32", request="cold_c",
@@ -2116,20 +2528,14 @@ def main() -> int:
         first_differing_token=first_difference(alone32, outs32["cold_c"]),
         tokens_equal_bf16_run=json.dumps(
             {n: outs32[n] == outs[n] for n in outs}))
-    e32.shutdown()
-    e32.unload()
-    del e32
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_engine(torch, e32)
     eng.shutdown()
 
     engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,
                       pd_ops, InferenceEngine)
     # free qwen3's weights and pool before the hybrid loads
-    eng.unload()
-    del eng, kv, orig_decode, orig_admit
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_engine(torch, eng)
+    del eng
 
     # ----------------------------------------------------------- 5. hybrid
     hyb = hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine,
@@ -2148,7 +2554,39 @@ def main() -> int:
     kernels[1]["processor_launches"] = proc["paged_decode_attention"]
     kernels[1]["processor_split_launches"] = proc["paged_split"]
 
-    # ------------------------------------------------------- 7. the report
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ 7. the MoE family
+    runs = {"moe": moe_phases(torch, np, get_config, tokenizer,
+                              InferenceEngine, moe, fa_ops, pd_ops,
+                              plain_calls)}
+    # --------------------------------------------- 8. the rest of the dense
+    for arch, key in (("qwen3-8b", "qwen3_8b"),
+                      ("llama3.2-3b", "llama3_2_3b")):
+        runs[key] = dense_family_phase(
+            torch, np, arch, get_config, tokenizer, InferenceEngine, fa_ops,
+            pd_ops, da_ops, plain_calls)
+    for key, r in runs.items():
+        kernels[0][f"{key}_launches"] = r["flash_attention"]
+        kernels[0][f"{key}_tensor_core_launches"] = r["flash_tensor_core"]
+        kernels[1][f"{key}_launches"] = r["paged_decode_attention"]
+        kernels[1][f"{key}_split_launches"] = r["paged_split"]
+        if "decode_attention_dense_view" in r:
+            kernels[2][f"{key}_dense_view_launches"] = \
+                r["decode_attention_dense_view"]
+    # the attend-only arms' launches as counted in each path's run (the
+    # engines decode fused: kernel_variant="single"/"blocked" is an option
+    # no path here takes)
+    for e in arm_entries:
+        count = "paged_" + e["name"].rsplit("_", 1)[1]
+        e["launches"] = launches[count]
+        e["processor_launches"] = proc[count]
+        for key, r in runs.items():
+            e[f"{key}_launches"] = r[count]
+    kernels.extend(arm_entries)
+
+    # ------------------------------------------------------- 9. the report
     log("done", wall_s=f"{time.perf_counter() - t_start:.3f}",
         build_s=f"{build.build_seconds:.3f}")
     print(json.dumps({"kernels": kernels}))

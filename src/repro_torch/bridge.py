@@ -7,9 +7,15 @@ port's model of ``cfg.family``.  It imports no JAX.
 
 * Layouts match: both packages keep weights ``(in, out)`` for ``x @ W``,
   so nothing is transposed.
-* Dense (``TransformerLM``): ``params["blocks"]`` is stacked on a leading
-  layer axis (the JAX init vmaps over layers); the port holds one module
-  per layer, so the axis is split.
+* Dense and MoE (``TransformerLM``): ``params["blocks"]`` is stacked on a
+  leading layer axis (the JAX init vmaps over layers); the port holds one
+  module per layer, so the axis is split.  An MoE model's unscanned
+  ``params["lead_blocks"]`` (a list, dense FFNs) become the port's first
+  layers and the stacked blocks the rest, the order of the KV cache and
+  the page pool in both packages.  The experts bridge as they are:
+  ``moe.w_gate``/``w_up`` ``(E, D, F)``, ``moe.w_down`` ``(E, F, D)``,
+  ``moe.shared.*``; ``moe.router`` stays float32.  ``lm_head`` bridges
+  where the config unties it.
 * Hybrid (``GriffinLM``): ``params["groups"][f"b{i}"]`` is stacked on a
   leading group axis; group g, position i becomes layer ``3g + i`` of the
   port's block list, and ``params["leftover"][j]`` the layers after the
@@ -28,7 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-_F32_LEAVES = ("rg.b_a", "rg.b_x", "rg.lam")
+_F32_LEAVES = ("rg.b_a", "rg.b_x", "rg.lam", "moe.router")
 
 
 def _tensor(a, dtype: torch.dtype) -> torch.Tensor:
@@ -44,11 +50,15 @@ def _flatten(tree, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
-def _hybrid(np_params, cfg: ModelConfig, dtype) -> Dict[str, torch.Tensor]:
-    glen = len(cfg.block_pattern or ("rglru", "rglru", "attn"))
-    n_groups = cfg.num_layers // glen
+def params_from_jax(np_params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """JAX params (numpy leaves) -> port state_dict for ``cfg.family``."""
+    if cfg.family not in ("dense", "moe", "hybrid"):
+        raise NotImplementedError(f"family {cfg.family!r} is not bridged")
+    dtype = getattr(torch, cfg.dtype)
     sd = {"embed": _tensor(np_params["embed"], dtype),
           "final_norm": _tensor(np_params["final_norm"], dtype)}
+    if "lm_head" in np_params:
+        sd["lm_head"] = _tensor(np_params["lm_head"], dtype)
 
     def put(layer: int, block, index=None):
         for name, leaf in _flatten(block):
@@ -56,32 +66,18 @@ def _hybrid(np_params, cfg: ModelConfig, dtype) -> Dict[str, torch.Tensor]:
             sd[f"blocks.{layer}.{name}"] = _tensor(
                 a, torch.float32 if name in _F32_LEAVES else dtype)
 
-    for g in range(n_groups):
-        for i in range(glen):
-            put(glen * g + i, np_params["groups"][f"b{i}"], g)
-    for j, block in enumerate(np_params["leftover"]):
-        put(glen * n_groups + j, block)
-    return sd
-
-
-def params_from_jax(np_params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """JAX params (numpy leaves) -> port state_dict for ``cfg.family``."""
-    dtype = getattr(torch, cfg.dtype)
     if cfg.family == "hybrid":
-        return _hybrid(np_params, cfg, dtype)
-    if cfg.family != "dense" or "lead_blocks" in np_params:
-        raise NotImplementedError("only the dense and hybrid families are "
-                                  "bridged")
-    sd = {"embed": _tensor(np_params["embed"], dtype),
-          "final_norm": _tensor(np_params["final_norm"], dtype)}
-    if "lm_head" in np_params:
-        sd["lm_head"] = _tensor(np_params["lm_head"], dtype)
-    blocks = np_params["blocks"]
-    for i in range(cfg.num_layers):
-        pre = f"blocks.{i}."
-        sd[pre + "ln1"] = _tensor(blocks["ln1"][i], dtype)
-        sd[pre + "ln2"] = _tensor(blocks["ln2"][i], dtype)
-        for group in ("attn", "ffn"):
-            for name, stacked in blocks[group].items():
-                sd[f"{pre}{group}.{name}"] = _tensor(stacked[i], dtype)
+        glen = len(cfg.block_pattern or ("rglru", "rglru", "attn"))
+        n_groups = cfg.num_layers // glen
+        for g in range(n_groups):
+            for i in range(glen):
+                put(glen * g + i, np_params["groups"][f"b{i}"], g)
+        for j, block in enumerate(np_params["leftover"]):
+            put(glen * n_groups + j, block)
+        return sd
+    lead = np_params.get("lead_blocks", [])
+    for i, block in enumerate(lead):
+        put(i, block)
+    for i in range(cfg.num_layers - len(lead)):
+        put(len(lead) + i, np_params["blocks"], i)
     return sd

@@ -2,8 +2,10 @@
 
 ``get_config(arch)`` returns the full config and ``get_smoke(arch)`` the
 reduced same-family config the CPU tests use.  The port serves the dense
-``qwen3-1.7b`` and the hybrid ``recurrentgemma-2b`` so far; other archs
-raise ``KeyError`` (ROADMAP Queue 1 lists the families still to port).
+``qwen3-1.7b``, ``qwen3-8b`` and ``llama3.2-3b``, the MoE
+``deepseek-moe-16b`` and the hybrid ``recurrentgemma-2b`` so far; other
+archs raise ``KeyError`` (ROADMAP Queue 1 lists the families still to
+port).
 """
 from __future__ import annotations
 
@@ -12,7 +14,10 @@ import importlib
 from repro_torch.configs.base import ModelConfig, MoEConfig, round_up
 
 _MODULES = {
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "llama3.2-3b": "llama32_3b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "qwen3-8b": "qwen3_8b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 

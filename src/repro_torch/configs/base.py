@@ -72,7 +72,9 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count of the ported families (embedding +
-        blocks + head), counted as the JAX package counts it."""
+        blocks + head), counted as the JAX package counts it: an MoE
+        layer holds its routed and shared experts and its router, a lead
+        layer (``i < first_dense_layers``) a dense FFN of ``d_ff_dense``."""
         d, dh = self.d_model, self.resolved_head_dim
         h, hkv = self.num_heads, self.num_kv_heads
         embed = self.padded_vocab * d
@@ -80,12 +82,31 @@ class ModelConfig:
         attn = d * h * dh + 2 * d * hkv * dh + h * dh * d
         w = self.lru_width or d
         rglru = 2 * d * w + 2 * w + self.conv1d_width * w + w * d
+        m = self.moe
         pattern = self.block_pattern or ("attn",)
         total = embed + head + d
         for i in range(self.num_layers):
-            mix = attn if pattern[i % len(pattern)] == "attn" else rglru
-            total += 2 * d + mix + 3 * d * self.d_ff
+            total += 2 * d
+            if pattern[i % len(pattern)] != "attn":
+                total += rglru + 3 * d * self.d_ff
+            elif m is None:
+                total += attn + 3 * d * self.d_ff
+            elif i < m.first_dense_layers:
+                total += attn + 3 * d * (m.d_ff_dense or self.d_ff)
+            else:
+                total += attn + (m.num_experts + m.num_shared_experts) \
+                    * 3 * d * m.d_ff_expert + d * m.num_experts
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches: an MoE layer's top_k routed
+        experts and its shared ones, not the other routed experts."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        inactive = (self.num_layers - m.first_dense_layers) \
+            * (m.num_experts - m.top_k) * 3 * self.d_model * m.d_ff_expert
+        return int(self.param_count() - inactive)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

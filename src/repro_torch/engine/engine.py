@@ -282,6 +282,13 @@ class InferenceEngine:
     def loaded(self) -> bool:
         return self._loaded
 
+    def param_bytes(self) -> int:
+        """Bytes of the model's weights on the device when loaded, each
+        leaf at its own dtype (an MoE router stays float32); read from the
+        shapes, so it holds before ``load`` and after ``unload``."""
+        return sum(w.numel() * w.element_size()
+                   for w in self.model.parameters())
+
     # ----------------------------------------------------------- submission
     def submit(self, prompt: Sequence[int], *, max_new_tokens: int = 16,
                temperature: float = 0.0,

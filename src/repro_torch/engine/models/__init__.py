@@ -1,8 +1,8 @@
 """Model registry of the port: ``build_model(cfg)`` dispatches on
 ``cfg.family``.
 
-* ``dense`` -> ``TransformerLM``.  It implements the paged-KV hooks the
-  continuous-batching engine drives:
+* ``dense`` and ``moe`` -> ``TransformerLM``.  It implements the
+  paged-KV hooks the continuous-batching engine drives:
     paged_kv_layout() -> (layers, kv_heads, head_dim)
     prefill_with_cache(tokens, cache, valid_len=...) -> (logits, cache)
     paged_decode_step(token, k_pages, v_pages, page_table, lengths)
@@ -23,7 +23,7 @@ from repro_torch.configs.base import ModelConfig
 
 
 def build_model(cfg: ModelConfig, device="cuda"):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from repro_torch.engine.models.transformer import TransformerLM
         return TransformerLM(cfg, device=device)
     if cfg.family == "hybrid":

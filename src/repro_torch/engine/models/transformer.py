@@ -1,13 +1,18 @@
-"""Decoder-only transformer LM, dense family, as a PyTorch module.
+"""Decoder-only transformer LM, dense and MoE families, as a PyTorch module.
 
 The counterpart of ``repro/engine/models/transformer.py`` for the dense
-family (qwen3-1.7b: GQA, qk-norm, tied embeddings).  MoE, sliding-window
-attention and the VLM prefix are not ported yet and raise
-``NotImplementedError`` (ROADMAP Queue 1 items 8 and 9).
+family (qwen3-1.7b and qwen3-8b: GQA, qk-norm; llama3.2-3b: three query
+heads per KV head, no qk-norm) and the MoE family (deepseek-moe-16b: its
+first ``first_dense_layers`` layers keep a dense FFN of ``d_ff_dense``,
+the rest route through ``moe.py``).  Sliding-window attention and the VLM
+prefix are not ported yet and raise ``NotImplementedError`` (ROADMAP
+Queue 1 item 9).
 
 Weights are ``(in, out)`` as in the JAX package; the blocks are a
 ``ModuleList`` where the JAX package stacks them on a leading layer axis
-(``repro_torch.bridge`` splits that axis).  The module serves inference
+(``repro_torch.bridge`` splits that axis); the JAX package's unscanned
+``lead_blocks`` are the list's first layers, as they are the first layers
+of its KV cache and page pool.  The module serves inference
 only: its parameters do not require grad.  Unlike the JAX functions,
 ``prefill_with_cache``, ``paged_decode_step`` and ``decode_step`` write
 KV into the cache or pool they are given IN PLACE, which saves the
@@ -24,6 +29,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.models import layers as L
+from repro_torch.engine.models import moe as M
 from repro_torch.kernels.paged_decode_attention import ops as pd_ops
 
 Cache = Dict[str, torch.Tensor]
@@ -35,9 +41,11 @@ def _param(*shape, dtype, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One pre-norm attention + SwiGLU block."""
+    """One pre-norm attention block with a SwiGLU FFN (``ffn``) or, in an
+    MoE layer, the experts (``moe``); the other is None."""
 
-    def __init__(self, cfg: ModelConfig, head_dim: int, dtype, device):
+    def __init__(self, cfg: ModelConfig, head_dim: int, dtype, device,
+                 layer: int = 0):
         super().__init__()
         d, dh = cfg.d_model, head_dim
         h, hkv = cfg.num_heads, cfg.num_kv_heads
@@ -50,22 +58,28 @@ class Block(nn.Module):
         self.attn = nn.ParameterDict(
             {n: _param(*s, dtype=dtype, device=device)
              for n, s in attn.items()})
+        m = cfg.moe
+        self.ffn = self.moe = None
+        if m is not None and layer >= m.first_dense_layers:
+            self.moe = M.MoE(d, m, dtype, device)
+            return
+        d_ff = m.d_ff_dense if m is not None else cfg.d_ff
         self.ffn = nn.ParameterDict(
             {n: _param(*s, dtype=dtype, device=device)
-             for n, s in (("w_gate", (d, cfg.d_ff)), ("w_up", (d, cfg.d_ff)),
-                          ("w_down", (cfg.d_ff, d)))})
+             for n, s in (("w_gate", (d, d_ff)), ("w_up", (d, d_ff)),
+                          ("w_down", (d_ff, d)))})
 
 
 class TransformerLM(nn.Module):
-    """The dense decoder; its weights live on ``device`` (the card unless
-    the caller asks for the CPU, or "meta" until the engine loads)."""
+    """The dense or MoE decoder; its weights live on ``device`` (the card
+    unless the caller asks for the CPU, or "meta" until the engine
+    loads)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.family != "dense" or cfg.moe is not None:
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-                f"item 8: MoE)")
+                f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
         if cfg.swa_window or cfg.num_patches:
             raise NotImplementedError(
                 "sliding-window attention and the VLM prefix are not "
@@ -80,8 +94,8 @@ class TransformerLM(nn.Module):
             self.lm_head = _param(cfg.d_model, cfg.padded_vocab,
                                   dtype=self.dtype, device=device)
         self.blocks = nn.ModuleList(
-            Block(cfg, self.head_dim, self.dtype, device)
-            for _ in range(cfg.num_layers))
+            Block(cfg, self.head_dim, self.dtype, device, layer=i)
+            for i in range(cfg.num_layers))
 
     # ------------------------------------------------------------------ init
     @torch.no_grad()
@@ -103,9 +117,17 @@ class TransformerLM(nn.Module):
                                        cfg.num_kv_heads, self.head_dim,
                                        self.dtype, cfg.qk_norm).items():
                 blk.attn[name].copy_(w)
-            for name, w in L.ffn_init(gen, cfg.d_model, cfg.d_ff,
-                                      self.dtype).items():
-                blk.ffn[name].copy_(w)
+            if blk.moe is None:
+                d_ff = blk.ffn["w_up"].shape[1]
+                for name, w in L.ffn_init(gen, cfg.d_model, d_ff,
+                                          self.dtype).items():
+                    blk.ffn[name].copy_(w)
+                continue
+            experts = M.moe_init(gen, cfg.d_model, cfg.moe, self.dtype)
+            for name, w in experts.pop("shared", {}).items():
+                blk.moe.shared[name].copy_(w)
+            for name, w in experts.items():
+                blk.moe[name].copy_(w)
         return self
 
     @property
@@ -124,18 +146,28 @@ class TransformerLM(nn.Module):
                           rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
                           norm_eps=cfg.norm_eps)
 
-    def _finish_block(self, blk: Block, x, o):
+    def _finish_block(self, blk: Block, x, o, aux=None):
+        """The attention output, then the FFN or the experts; ``aux``, a
+        list, collects each MoE layer's aux loss."""
         x = x + L.attn_out(blk.attn, o)
         h = L.rms_norm(x, blk.ln2, self.cfg.norm_eps)
-        return x + L.ffn_apply(blk.ffn, h)
+        if blk.moe is None:
+            return x + L.ffn_apply(blk.ffn, h)
+        y, a = M.moe_ffn(h, blk.moe, self.cfg.moe)
+        if aux is not None:
+            aux.append(a)
+        return x + y
 
     # --------------------------------------------------------------- forward
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Teacher-forced forward.  Returns (logits (B,S,Vpad), aux)."""
-        logits, _ = self._run_prompt(tokens, impl, all_logits=True)
-        return logits, torch.zeros((), device=tokens.device)
+        """Teacher-forced forward.  Returns (logits (B,S,Vpad), aux): the
+        MoE layers' aux losses summed in layer order, float32 (0 for a
+        dense model)."""
+        aux = []
+        logits, _ = self._run_prompt(tokens, impl, all_logits=True, aux=aux)
+        return logits, sum(aux, torch.zeros((), device=tokens.device))
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, impl: Optional[str] = None
@@ -144,7 +176,7 @@ class TransformerLM(nn.Module):
         ``{"k", "v": (L,B,S,Hkv,Dh), "length": (B,) int32}``)."""
         return self._run_prompt(tokens, impl, all_logits=False)
 
-    def _run_prompt(self, tokens, impl, all_logits):
+    def _run_prompt(self, tokens, impl, all_logits, aux=None):
         cfg = self.cfg
         impl = impl or cfg.attention_impl
         x = self.embed[tokens]
@@ -157,7 +189,7 @@ class TransformerLM(nn.Module):
             o = L.attention(q, k, v, q_positions=positions,
                             kv_positions=positions, causal=True,
                             window=cfg.swa_window, impl=impl)
-            x = self._finish_block(blk, x, o)
+            x = self._finish_block(blk, x, o, aux)
             ks.append(k)
             vs.append(v)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)

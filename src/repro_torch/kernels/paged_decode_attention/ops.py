@@ -5,9 +5,10 @@ variants of the JAX package: ``single`` (stages of one page), ``blocked``
 (stages of up to ``pages_per_block`` pages, bitwise equal to single) and
 ``fused`` (blocked with the new token's K/V appended inside the kernel,
 bitwise equal to scatter-then-attend).  For CUDA tensors the wrappers
-launch it on the current stream and count each launch in ``launches``;
-for CPU tensors they run the plain versions in ``ref.py``.  There is no
-fallback: a CUDA call the kernel cannot take raises.
+launch it on the current stream and count each launch in ``launches``
+and in ``variant_launches`` under the variant it ran; for CPU tensors
+they run the plain versions in ``ref.py``.  There is no fallback: a
+CUDA call the kernel cannot take raises.
 
 The kernel splits a row's pages across blocks (flash-decoding over
 pages).  ``plan_chunk_pages`` fixes the chunk from the page size and Dh
@@ -45,9 +46,11 @@ MAX_SPLIT = 65535               # chunks a table may hold (the grid's z)
 _MAX_SMEM = 227 * 1024
 
 # kernel launches since the last reset, all variants (CPU calls are not
-# counted), and those whose table held more than one chunk (partials,
-# merged by each row's last block)
+# counted), those of each variant (an attend-only call with stages of
+# more than one page counts as "blocked"), and those whose table held
+# more than one chunk (partials, merged by each row's last block)
 launches = 0
+variant_launches = dict.fromkeys(VARIANTS, 0)
 split_launches = 0
 # the engines' loop threads launch concurrently: every update of the
 # counts holds the lock, so none is lost
@@ -58,13 +61,15 @@ def reset_counts() -> None:
     global launches, split_launches
     with _count_lock:
         launches = split_launches = 0
+        variant_launches.update(dict.fromkeys(VARIANTS, 0))
 
 
-def _count(split: bool) -> None:
-    """Count one launch, and whether it was split."""
+def _count(split: bool, variant: str) -> None:
+    """Count one launch of ``variant``, and whether it was split."""
     global launches, split_launches
     with _count_lock:
         launches += 1
+        variant_launches[variant] += 1
         if split:
             split_launches += 1
 
@@ -144,10 +149,11 @@ def _check(q, k_pages, v_pages, page_table, lengths, k_new=None,
         raise ValueError("paged_decode_attention: inputs must be contiguous")
 
 
-def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, ppb):
-    """Launch on q (B,H,Dh) or (B,1,H,Dh), whose memory is the same.
-    Returns out at q's shape, the f32 buffer that holds m and l after
-    ``n_part`` partial values, and ``n_part``."""
+def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, ppb,
+            variant):
+    """Launch ``variant`` on q (B,H,Dh) or (B,1,H,Dh), whose memory is
+    the same.  Returns out at q's shape, the f32 buffer that holds m and
+    l after ``n_part`` partial values, and ``n_part``."""
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")
@@ -199,7 +205,7 @@ def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, ppb):
         base if n_part else None, B, H, Hkv, Dh, ps, n_pages, chunk, stage,
         int(append), DTYPES[q.dtype], DTYPES[k_pages.dtype], stream))
     build.check(err, "paged_decode_attention_fwd")
-    _count(n_split > 1)
+    _count(n_split > 1, variant)
     return out, buf, n_part
 
 
@@ -243,7 +249,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     ppb = 1 if variant == "single" else (
         pages_per_block or DEFAULT_PAGES_PER_BLOCK)
     out, buf, n_part = _launch(q, k_pages, v_pages, page_table, lengths,
-                               None, None, ppb)
+                               None, None, ppb,
+                               "single" if variant == "single" else "blocked")
     if not return_lse:
         return out
     return (out, *_lse(buf, n_part, *q3.shape[:2]))
@@ -276,7 +283,8 @@ def fused_paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
         return out, k_pages, v_pages
     out, buf, n_part = _launch(q, k_pages, v_pages, page_table, lengths,
                                k_new, v_new,
-                               pages_per_block or DEFAULT_PAGES_PER_BLOCK)
+                               pages_per_block or DEFAULT_PAGES_PER_BLOCK,
+                               "fused")
     if return_lse:
         return (out, *_lse(buf, n_part, *q3.shape[:2]), k_pages, v_pages)
     return out, k_pages, v_pages

@@ -33,8 +33,11 @@ CASES = {
                       lambda n, tc: {"launches": n,
                                      "tensor_core_launches": tc,
                                      "cuda_core_launches": n - tc}),
-    "paged": (pd_ops, lambda i: (i % 2 == 0,),
-              lambda n, s: {"launches": n, "split_launches": s}),
+    "paged": (pd_ops, lambda i: (i % 2 == 0,
+                                 "fused" if i % 2 == 0 else "single"),
+              lambda n, s: {"launches": n, "split_launches": s,
+                            "variant_launches": {"single": n - s,
+                                                 "blocked": 0, "fused": s}}),
     "decode": (da_ops, lambda i: (i % 2 == 0,),
                lambda n, s: {"launches": n, "split_launches": s}),
     "scan": (lru_ops, lambda i: (),

@@ -48,6 +48,10 @@ def _env():
 def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("repro_torch.configs.recurrentgemma_2b",
+              "repro_torch.configs.deepseek_moe_16b",
+              "repro_torch.configs.qwen3_8b",
+              "repro_torch.configs.llama32_3b",
+              "repro_torch.engine.models.moe",
               "repro_torch.engine.models.rglru",
               "repro_torch.engine.models.xlstm",
               "repro_torch.kernels.decode_attention.ops",
@@ -77,6 +81,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     sources = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
     assert PKG / "configs" / "recurrentgemma_2b.py" in sources
     assert PKG / "engine" / "models" / "rglru.py" in sources
+    assert PKG / "engine" / "models" / "moe.py" in sources
+    assert PKG / "configs" / "deepseek_moe_16b.py" in sources
     assert PKG / "kernels" / "shared_prefix_attention" / "ops.py" in sources
     for sub in ("core", "workloads", "runtime", "launch"):
         assert PKG / sub / "__init__.py" in sources, sub
@@ -130,28 +136,35 @@ def test_processor_entry_points_default_to_cuda_and_raise_without_a_card():
 
 
 def test_registry_holds_the_ported_config_only():
-    """The registry holds qwen3-1.7b and recurrentgemma-2b, each equal to
-    the JAX package's config (full and smoke), and nothing else."""
+    """The registry holds the five ported archs, each equal to the JAX
+    package's config (full and smoke), and nothing else: an unported arch
+    (mixtral-8x22b, sliding-window MoE) raises."""
     from repro.configs import get_config as jax_config
     from repro.configs import get_smoke as jax_smoke
     from repro_torch.configs import ARCH_IDS
-    assert ARCH_IDS == ("qwen3-1.7b", "recurrentgemma-2b")
+    assert ARCH_IDS == ("deepseek-moe-16b", "llama3.2-3b", "qwen3-1.7b",
+                        "qwen3-8b", "recurrentgemma-2b")
     fields = ("name", "family", "num_layers", "d_model", "num_heads",
               "num_kv_heads", "d_ff", "vocab_size", "head_dim",
               "rope_theta", "qk_norm", "tie_embeddings", "norm_eps",
               "dtype", "block_pattern", "local_attn_window", "lru_width",
-              "conv1d_width", "swa_window")
+              "conv1d_width", "swa_window", "moe")
     for arch, vocab in (("qwen3-1.7b", 152064),
-                        ("recurrentgemma-2b", 256000)):
+                        ("recurrentgemma-2b", 256000),
+                        ("deepseek-moe-16b", 102400), ("qwen3-8b", 152064),
+                        ("llama3.2-3b", 128256)):
         for mine, ref in ((get_config(arch), jax_config(arch)),
                           (get_smoke(arch), jax_smoke(arch))):
             for f in fields:
-                assert getattr(mine, f) == getattr(ref, f), (arch, f)
+                a, b = getattr(mine, f), getattr(ref, f)
+                if f == "moe" and a is not None:
+                    a, b = vars(a), vars(b)
+                assert a == b, (arch, f)
             assert mine.param_count() == ref.param_count()
             assert mine.attention_impl == "cuda"
         assert get_config(arch).padded_vocab == vocab
     with pytest.raises(KeyError):
-        get_config("llama3.2-3b")
+        get_config("mixtral-8x22b")
 
 
 @pytest.mark.parametrize("alone", [False, True])
