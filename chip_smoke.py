@@ -23,8 +23,13 @@ each:
    past its tile and block edges, the shared-prefix kernel and op over
    prime and long prefixes with ragged suffixes, the main paths'
    full-width shapes with kernel / plain / library times and the card's
-   lower bound, and the paged kernel and flash at the head groupings of
-   the MoE and dense-family models, G = 1 with 16 KV heads, 3 and 4);
+   lower bound, the paged kernel and flash at the head groupings of
+   the MoE and dense-family models, G = 1 with 16 KV heads, 3 and 4,
+   flash non-causal at whisper's encoder and cross-attention shapes, and
+   the decode kernel as whisper's decode cross-attention through the
+   attention dispatcher, with its rows of no frame at 0, each held
+   element by element and in RMS to the reference's scale, with
+   controls that must fail);
 3. shared prefix: the Hydragen op through its entry point at qwen3-1.7b's
    attention width, B=8 and B=32 rows on one 2048-token prefix; both of
    its kernels must launch, the prefix kernel on the tensor cores (it
@@ -76,7 +81,21 @@ each:
    and llama3.2-3b (G=3), four requests each, the launch checks, CUDA
    against plain step parity in bf16, and on a float32 copy cut to 4
    layers the paged path's tokens equal to the dense view's;
-9. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
+9. the last single-card families, each engine freed before the next
+   loads: full-width internvl2-2b (four requests with 256 patch
+   embeddings, two text-only ones sharing a prefix; flash prefill, the
+   fused paged decode, every paged launch split; its profile; CUDA
+   against plain step parity in bf16 and float32 on a live step of all
+   six rows, the patch rows among them; paged == dense view on
+   a float32 copy cut to 4 layers), xlstm-350m through the dense-row path
+   (six requests of 64-256 tokens, no attention kernel; its profile;
+   prefill plus decode against the teacher-forced forward and batch
+   invariance, float32 asserted) and whisper-tiny through the dense-row
+   path (six requests with 1500 to 300 frames in one batch: flash for the
+   encoder, self- and cross-attention, decode for both, launch counts
+   asserted; its profile; step parity; batch invariance of the 300-frame
+   request, float32 asserted);
+10. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
    single and blocked arms as entries of their own), the card's
    ``nvidia-smi`` line, and the last line ``{"ok": true, "device":
    {...}}``.
@@ -918,37 +937,15 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
     # four requests and a duplicate, then one more after the first decode
     # step: up to five live rows
     requests = (("a", "b", "c", "d", "a_dup"), ("late_e",))
-    step_s, admit_s, undo = time_engine(eng, "_decode_once")
-    fa_ops.reset_counts()
-    da_ops.reset_counts()
-    lru_ops.reset_counts()
-    pd_ops.reset_counts()
-    plain0 = plain_calls["n"]
-    t_run = time.perf_counter()
-    outs = serve_requests(eng, prompts, max_new, *requests)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t_run
-    launches = {"flash_attention": fa_ops.launches,
-                "flash_tensor_core": fa_ops.tensor_core_launches,
-                "decode_attention": da_ops.launches,
-                "decode_split": da_ops.split_launches,
-                "rglru_scan": lru_ops.launches,
-                "paged_decode_attention": pd_ops.launches}
-    undo()
+    outs, launches, step_s, admit_s, run_s = serve_dense(
+        torch, eng, prompts, max_new, requests, fa_ops, da_ops, pd_ops,
+        plain_calls, lru_ops=lru_ops)
     st = eng.stats
-    assert all(len(o) == max_new for o in outs.values()), "short output"
     assert outs["a_dup"] == outs["a"]
     assert st.coalesced_requests >= 1 and st.peak_batch >= 2, st.as_dict()
     assert launches["flash_attention"] > 0 \
         and launches["decode_attention"] > 0 \
-        and launches["rglru_scan"] > 0 \
-        and launches["paged_decode_attention"] == 0, launches
-    assert launches["flash_tensor_core"] == launches["flash_attention"], \
-        "a bf16 flash launch missed the tensor cores"
-    assert launches["decode_split"] == launches["decode_attention"], \
-        "a decode launch was not split"
-    assert plain_calls["n"] == plain0, "a plain version ran on the CUDA path"
-    assert eng.kv is None, "the dense-row path allocated pages"
+        and launches["rglru_scan"] > 0, launches
     n_steps, admitted = len(step_s), len(admit_s)
     log("hybrid.run", model="recurrentgemma-2b(full width, 26 blocks)",
         params=n_params, requests=len(outs), admitted=admitted,
@@ -968,15 +965,14 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
         rglru_scan_per_request=f"{launches['rglru_scan'] / admitted:.1f}",
         max_memory_allocated_gib=
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
-        plain_calls=plain_calls["n"] - plain0)
+        plain_calls=launches["plain_calls"])
 
     # a B=8 decode view of one prefilled 380-token row, and one prefill
     model = eng.model
     toks_a = torch.as_tensor([prompts["a"]], dtype=torch.int32, device=dev)
     _, cache = model.prefill(toks_a)
     row = model.extend_cache(cache, eng.max_seq_len - toks_a.shape[1])
-    axes = model.cache_batch_axes(row)
-    view = {k: torch.cat([row[k]] * 8, dim=ax) for k, ax in axes.items()}
+    view = rows_view(torch, model, [row] * 8)
     tok8 = torch.arange(8, dtype=torch.int32, device=dev) + 11
 
     def decode_step():
@@ -996,43 +992,19 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
 
     # one decode step under impl="cuda" and under impl="torch" on copies
     # of the same view
-    logits = {}
-    for impl in ("cuda", "torch"):
-        lg, _ = model.decode_step(tok8, {k: v.clone() for k, v in
-                                         view.items()}, impl=impl)
-        assert lg.shape == (8, cfg.padded_vocab) and bool(
-            torch.isfinite(lg).all()), impl
-        logits[impl] = lg.float()
-    diff = (logits["cuda"] - logits["torch"]).abs().max().item()
-    scale = logits["torch"].abs().max().item()
+    diff, scale, same = decode_parity(torch, model, view, tok8)
     assert diff <= 5e-2 * scale, (diff, scale)
     log("hybrid.step_parity", rows=8, max_abs_diff=f"{diff:.4e}",
         logit_scale=f"{scale:.4e}", tolerance="5e-2*scale",
-        same_argmax=torch.equal(logits["cuda"].argmax(-1),
-                                logits["torch"].argmax(-1)))
+        same_argmax=same)
     del view, row, cache
 
     # batch invariance: the first request, decoded again alone; then the
     # same on a float32 copy of the weights, where other GEMM shapes at
     # B=1 and at B=8 differ by f32 rounding only, so a token that differs
     # there is a fault of the port, not bf16 rounding on flat logits
-    alone = eng.generate([prompts["a"]], max_new_tokens=max_new)[0]
-    log("hybrid.batch_invariance", request="a", batched_vs_alone=
-        "equal" if alone == outs["a"] else "differ",
-        first_differing_token=first_difference(alone, outs["a"]))
-    eng.shutdown()
-    e32 = InferenceEngine(cfg.replace(dtype="float32"), seed=0)
-    e32.load(model.state_dict())                       # bf16 -> f32, exact
-    outs32 = serve_requests(e32, prompts, max_new, *requests)
-    alone32 = e32.generate([prompts["a"]], max_new_tokens=max_new)[0]
-    assert all(len(o) == max_new for o in outs32.values()), "short output"
-    log("hybrid.batch_invariance", dtype="float32", request="a",
-        peak_batch=e32.stats.peak_batch, batched_vs_alone=
-        "equal" if alone32 == outs32["a"] else "differ",
-        first_differing_token=first_difference(alone32, outs32["a"]),
-        tokens_equal_bf16_run=json.dumps(
-            {n: outs32[n] == outs[n] for n in outs}))
-    assert alone32 == outs32["a"], "float32 tokens depend on the batch"
+    e32, _ = batch_invariance(torch, InferenceEngine, eng, "hybrid",
+                              prompts, outs, "a", max_new, requests)
     e32.shutdown()
     hybrid_ring(torch, model, e32.model, words, vocab)
     e32.unload()
@@ -1793,9 +1765,10 @@ def family_prompts(np, tokenizer, vocab, seed, spec):
     return out, len(shared)
 
 
-def time_engine(eng, attr="_decode_paged"):
+def time_engine(eng, attr="_decode_paged", kinds=None):
     """Wrap an engine's decode step (``attr``) and its admissions with
-    host clocks.  Returns (step seconds, admission seconds, undo)."""
+    host clocks.  Returns (step seconds, admission seconds, undo); a list
+    ``kinds`` gets, for each admission, whether its request had extras."""
     step_s, admit_s = [], []
     orig_decode, orig_admit = getattr(eng, attr), eng._admit_one
 
@@ -1808,6 +1781,8 @@ def time_engine(eng, attr="_decode_paged"):
         t0 = time.perf_counter()
         slot = orig_admit(req)
         admit_s.append(time.perf_counter() - t0)
+        if kinds is not None:
+            kinds.append(bool(req.extra))
         return slot
 
     setattr(eng, attr, timed_decode)
@@ -1820,12 +1795,15 @@ def time_engine(eng, attr="_decode_paged"):
     return step_s, admit_s, undo
 
 
-def serve_requests(eng, prompts, max_new, first, late=()):
+def serve_requests(eng, prompts, max_new, first, late=(), extras=None):
     """Submit ``first`` at once, then ``late`` after the first decode step;
-    a name ending in ``_dup`` repeats its stem's prompt."""
+    a name ending in ``_dup`` repeats its stem's prompt; ``extras`` maps a
+    name to its request's extras (patch embeddings, frames)."""
+    extras = extras or {}
+
     def submit(n):
         return eng.submit(prompts[n.removesuffix("_dup")],
-                          max_new_tokens=max_new)
+                          max_new_tokens=max_new, extra=extras.get(n))
 
     handles = {n: submit(n) for n in first}
     if late:
@@ -1846,19 +1824,19 @@ def paged_variant_counts(pd_ops):
 
 
 def serve_checked(torch, eng, prompts, max_new, requests, fa_ops, pd_ops,
-                  plain_calls):
+                  plain_calls, extras=None, kinds=None):
     """The main path's run of an engine phase: ``requests`` (first, late)
     served with the launch counts set to 0 just before and read just
     after.  Checks every output's length, the flash and paged launches, every
     bf16 flash launch on the tensor cores, a split paged launch where a
     table passed one chunk, and no plain version.  Returns (outputs,
     launches, step seconds, admission seconds, run seconds)."""
-    step_s, admit_s, undo = time_engine(eng)
+    step_s, admit_s, undo = time_engine(eng, kinds=kinds)
     n_plain = plain_calls["n"]
     fa_ops.reset_counts()
     pd_ops.reset_counts()
     t_run = time.perf_counter()
-    outs = serve_requests(eng, prompts, max_new, *requests)
+    outs = serve_requests(eng, prompts, max_new, *requests, extras=extras)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches = {"flash_attention": fa_ops.launches,
@@ -1884,6 +1862,91 @@ def serve_checked(torch, eng, prompts, max_new, requests, fa_ops, pd_ops,
     return outs, launches, step_s, admit_s, run_s
 
 
+def serve_dense(torch, eng, prompts, max_new, requests, fa_ops, da_ops,
+                pd_ops, plain_calls, lru_ops=None, extras=None):
+    """``serve_checked`` for the dense-row path: ``requests`` (first,
+    late) served with the launch counts set to 0 just before and read
+    just after.  Checks every output's length, no page allocated, every
+    bf16 flash launch on the tensor cores, every decode launch split, no
+    paged launch and no plain version.  Returns (outputs, launches, step
+    seconds, admission seconds, run seconds)."""
+    step_s, admit_s, undo = time_engine(eng, "_decode_once")
+    for ops in (fa_ops, da_ops, pd_ops, lru_ops):
+        if ops is not None:
+            ops.reset_counts()
+    plain0 = plain_calls["n"]
+    t_run = time.perf_counter()
+    outs = serve_requests(eng, prompts, max_new, *requests, extras=extras)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = {"flash_attention": fa_ops.launches,
+                "flash_tensor_core": fa_ops.tensor_core_launches,
+                "decode_attention": da_ops.launches,
+                "decode_split": da_ops.split_launches,
+                **({"rglru_scan": lru_ops.launches} if lru_ops else {}),
+                "paged_decode_attention": pd_ops.launches,
+                "plain_calls": plain_calls["n"] - plain0}
+    undo()
+    assert all(len(o) == max_new for o in outs.values()), "short output"
+    assert eng.kv is None, "the dense-row path allocated pages"
+    assert launches["flash_tensor_core"] == launches["flash_attention"], \
+        "a bf16 flash launch missed the tensor cores"
+    assert launches["decode_split"] == launches["decode_attention"], \
+        "a decode launch was not split"
+    assert launches["paged_decode_attention"] == 0, launches
+    assert launches["plain_calls"] == 0, \
+        "a plain version ran on the CUDA path"
+    return outs, launches, step_s, admit_s, run_s
+
+
+def batch_invariance(torch, InferenceEngine, eng, phase, prompts, outs,
+                     name, max_new, requests, extras=None, layers=None,
+                     asserted=True, check=None):
+    """Request ``name``, served in the batch ``outs`` by ``eng`` (bf16),
+    decoded again alone (logged), then the same on a float32 copy of the
+    weights (cut to ``layers`` if given) that first serves ``requests``:
+    there the lone tokens must equal the batched ones unless ``asserted``
+    is false.  Warm rows are released before each lone run, so it
+    prefills cold at a batch of one.  ``check(e32)`` runs once the copy
+    has served.  The bf16 engine's loop stops once the copy has loaded.
+    Returns the float32 engine, still loaded, and its outputs."""
+    ex = [extras[name]] if extras else None
+
+    def alone(e):
+        e.release_warm()
+        return e.generate([prompts[name]], max_new_tokens=max_new,
+                          extras=ex)[0]
+
+    alone16 = alone(eng)
+    cfg = eng.cfg.replace(dtype="float32",
+                          **({"num_layers": layers} if layers else {}))
+    e32 = InferenceEngine(cfg, seed=0)
+    e32.load(cut_copy(eng, layers) if layers          # bf16 -> f32, exact
+             else eng.model.state_dict())
+    eng.shutdown()
+    outs32 = serve_requests(e32, prompts, max_new, *requests, extras=extras)
+    assert all(len(o) == max_new for o in outs32.values()), "short output"
+    if check:
+        check(e32)
+    alone32 = alone(e32)
+    log(f"{phase}.batch_invariance", request=name,
+        peak_batch=eng.stats.peak_batch,
+        bf16=("equal" if alone16 == outs[name] else "differ"),
+        bf16_first_differing_token=first_difference(alone16, outs[name]),
+        float32_layers=cfg.num_layers,
+        float32=("equal" if alone32 == outs32[name] else "differ"),
+        float32_first_differing_token=first_difference(alone32,
+                                                       outs32[name]),
+        float32_asserted=asserted, float32_peak_batch=e32.stats.peak_batch,
+        float32_tokens_equal_bf16_run=json.dumps(
+            {n: outs32[n] == outs[n] for n in outs}))
+    if asserted:
+        assert alone32 == outs32[name], \
+            (f"float32 {phase} tokens depend on the batch",
+             first_difference(alone32, outs32[name]))
+    return e32, outs32
+
+
 def warm_step_inputs(torch, np, eng, rows, batch=None):
     """One decode step's inputs over ``rows`` of the engine's warm
     sequences, padded to ``batch`` rows of length -1 if given, as the
@@ -1903,14 +1966,19 @@ def warm_step_inputs(torch, np, eng, rows, batch=None):
     return tok, torch.as_tensor(pt).to(dev), torch.as_tensor(lens).to(dev)
 
 
-def step_parity(torch, np, eng, moe=None, rows=4, model=None):
+def step_parity(torch, np, eng, moe=None, rows=4, model=None, inputs=None):
     """One decode step of ``model`` (the engine's own by default) under
-    impl="cuda" and impl="torch" over copies of the engine's pool: (max
-    abs difference, logit scale, same argmax, and with ``moe`` the top-k
-    expert selections that differ between the two, over every MoE layer
-    and row)."""
+    impl="cuda" and impl="torch" over copies of the engine's pool, on
+    ``inputs`` (tokens, page table, lengths: the engine's own step, whose
+    first ``rows`` rows are real) or else on ``rows`` of its warm
+    sequences: (max abs difference, logit scale, same argmax, and with
+    ``moe`` the top-k expert selections that differ between the two, over
+    every MoE layer and row)."""
     model = model or eng.model
-    tok, pt, lens = warm_step_inputs(torch, np, eng, rows)
+    if inputs is None:
+        inputs = warm_step_inputs(torch, np, eng, rows)
+        rows = len(inputs[0])
+    tok, pt, lens = inputs
     logits, routes = {}, {}
     for impl in ("cuda", "torch"):
         with (moe_routing(moe) if moe else
@@ -1918,7 +1986,8 @@ def step_parity(torch, np, eng, moe=None, rows=4, model=None):
             lg, _, _ = model.paged_decode_step(
                 tok, eng.kv.k.clone(), eng.kv.v.clone(), pt, lens,
                 impl=impl)
-        assert lg.shape == (len(tok), eng.cfg.padded_vocab) \
+        lg = lg[:rows]
+        assert lg.shape == (rows, eng.cfg.padded_vocab) \
             and bool(torch.isfinite(lg).all()), impl
         logits[impl] = lg.float()
         routes[impl] = rec
@@ -1933,6 +2002,39 @@ def step_parity(torch, np, eng, moe=None, rows=4, model=None):
                       for e in (a, b))
             flips += sum(len(set(x) - set(y)) for x, y in zip(ta, tb))
     return diff, scale, same, flips
+
+
+def live_step_parity(torch, np, eng, models, n_extras, serve):
+    """Run ``serve()`` with the engine model's paged step wrapped: at the
+    first step whose batch holds the ``n_extras`` requests with extras
+    that ``serve`` submits, each of
+    ``models`` ({arm: model}) steps under impl="cuda" and impl="torch" on
+    that step's own inputs over copies of the pool (``step_parity``),
+    before the engine's step runs.  Returns ({arm: (max abs difference,
+    logit scale, same argmax)}, the step's rows, of them with extras, the
+    rows' lengths and the table's pages)."""
+    inner = eng.model.paged_decode_step
+    got = {}
+
+    def step(tok, k, v, pt, lens, **kw):
+        live = list(eng._active)
+        if not got and sum(bool(s.req.extra) for s in live) == n_extras:
+            got["rows"] = (len(live), n_extras,
+                           [s.length for s in live], pt.shape[1])
+            # with "rows" set, the engine model's calls pass through
+            for arm, m in models.items():
+                got[arm] = step_parity(
+                    torch, np, eng, model=m, rows=len(live),
+                    inputs=(tok, pt, lens))[:3]
+        return inner(tok, k, v, pt, lens, **kw)
+
+    eng.model.paged_decode_step = step
+    try:
+        serve()
+    finally:
+        del eng.model.paged_decode_step
+    assert "rows" in got, "no step held every request with extras"
+    return {a: got[a] for a in models}, *got["rows"]
 
 
 def profile_engine(torch, np, eng, prompt, max_new):
@@ -2092,36 +2194,25 @@ def moe_phases(torch, np, get_config, tokenizer, InferenceEngine, moe,
     parity = {"bf16": {"max_abs_diff": f"{diff:.4e}",
                        "logit_scale": f"{scale:.4e}", "same_argmax": same,
                        "topk_selections_differing": flips}}
-    eng.release_warm()
-    alone = eng.generate([prompts["cold_c"]], max_new_tokens=max_new)[0]
-    e32 = InferenceEngine(cfg.replace(dtype="float32",
-                                      num_layers=CUT_LAYERS), seed=0)
-    e32.load(cut_copy(eng, CUT_LAYERS))
-    outs32 = serve_requests(e32, prompts, max_new, *ENGINE_REQUESTS)
-    assert all(len(o) == max_new for o in outs32.values()), "short output"
-    diff, scale, same, flips = step_parity(torch, np, e32, moe)
-    assert diff <= 1e-3 * scale, (diff, scale)
-    parity["float32"] = {"layers": CUT_LAYERS, "max_abs_diff": f"{diff:.4e}",
-                         "logit_scale": f"{scale:.4e}", "same_argmax": same,
-                         "topk_selections_differing": flips}
-    log("moe.step_parity", rows=4, tolerance="float32 1e-3*scale; bf16 "
-        "logged", arms=json.dumps(parity))
+
+    def f32_parity(e32):
+        diff, scale, same, flips = step_parity(torch, np, e32, moe)
+        assert diff <= 1e-3 * scale, (diff, scale)
+        parity["float32"] = {"layers": CUT_LAYERS,
+                             "max_abs_diff": f"{diff:.4e}",
+                             "logit_scale": f"{scale:.4e}",
+                             "same_argmax": same,
+                             "topk_selections_differing": flips}
 
     # batch invariance: at B <= 16 a decode group is one token, so the
-    # routing cannot depend on the batch; asserted on the float32 copy,
-    # logged in bf16 (a near-tied router choice may flip)
-    e32.release_warm()
-    alone32 = e32.generate([prompts["cold_c"]], max_new_tokens=max_new)[0]
-    assert alone32 == outs32["cold_c"], \
-        ("float32 MoE decode depends on the batch",
-         first_difference(alone32, outs32["cold_c"]))
-    log("moe.batch_invariance", request="cold_c", peak_batch=st.peak_batch,
-        bf16=("equal" if alone == outs["cold_c"] else "differ"),
-        bf16_first_differing_token=first_difference(alone, outs["cold_c"]),
-        float32_layers=CUT_LAYERS,
-        float32=("equal" if alone32 == outs32["cold_c"] else "differ"),
-        float32_first_differing_token=first_difference(alone32,
-                                                       outs32["cold_c"]))
+    # routing cannot depend on the batch; asserted on the float32 copy
+    # (cut in depth, which also holds the step parity's float32 arm over
+    # its warm rows), logged in bf16 (a near-tied router choice may flip)
+    e32, _ = batch_invariance(torch, InferenceEngine, eng, "moe", prompts,
+                              outs, "cold_c", max_new, ENGINE_REQUESTS,
+                              layers=CUT_LAYERS, check=f32_parity)
+    log("moe.step_parity", rows=4, tolerance="float32 1e-3*scale; bf16 "
+        "logged", arms=json.dumps(parity))
 
     # the same prompt cold, then admitted over a shared prefix (its donor
     # share_b), on the float32 copy: the chunks' capacities differ
@@ -2218,6 +2309,576 @@ def dense_family_phase(torch, np, arch, get_config, tokenizer,
                                 "tolerance": "5e-2*scale"}),
         float32_layers=CUT_LAYERS, paged_vs_dense_view="equal",
         dense_view_decode_launches=da_ops.launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the last single-card families: VLM, ssm, encoder-decoder
+# ---------------------------------------------------------------------------
+
+def bf16_agreement(torch, out, ref):
+    """A bf16 output against its plain version: (max abs error, RMS
+    error, the reference's RMS, whether it holds: every element within the
+    bf16 op tolerance, 2e-3 + 8e-3*|ref|, and the RMS error within 5% of
+    the reference's RMS).  Softmax over 1000-1500 N(0,1) values gives
+    outputs of RMS about 0.04, where a fixed 3e-2 would pass a kernel that
+    drops its last key tile."""
+    o, r = out.float(), ref.float()
+    d = (o - r).abs()
+    tol = op_tol(torch, torch.bfloat16)
+    within = bool((d <= tol["atol"] + tol["rtol"] * r.abs()).all())
+    rms_err = d.pow(2).mean().sqrt().item()
+    rms_ref = r.pow(2).mean().sqrt().item()
+    return (d.max().item(), rms_err, rms_ref,
+            within and rms_err <= 5e-2 * rms_ref)
+
+
+BF16_AGREEMENT = "every element 2e-3+8e-3*|ref|, RMS error 5e-2*ref RMS"
+
+
+def last_tile_dropped(torch, kvp, tile=64):
+    """``kvp`` (valid keys a prefix of each row) with each row's valid keys
+    in its last ``tile``-key tile set to -1: what a kernel that skipped the
+    ragged tile would attend to."""
+    start = ((kvp >= 0).sum(dim=1, keepdim=True) - 1).clamp(min=0) \
+        // tile * tile
+    idx = torch.arange(kvp.shape[1], device=kvp.device)[None]
+    return torch.where(idx >= start, -1, kvp).to(kvp.dtype).contiguous()
+
+
+def kernels_flash_noncausal(torch, F, t, rng, fa_ops, flash_attention_ref):
+    """The flash kernel non-causal, as whisper runs it: f32 and bf16 over
+    padded keys, a row with no valid key and a row whose last, ragged tile
+    is valid, then timed at the encoder (B=1, 1500 frames over 1500, 6
+    heads, Dh 64) and the prefill cross-attention (64 prompt rows over
+    1500 slots, the last 500 at -1), bf16, on the tensor cores, each held
+    by ``bf16_agreement`` (a control with the last tile dropped must fail
+    it).  Returns {call: numbers}."""
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        B, Sq, Skv, H, Dh = 3, 48, 200, 6, 64
+        q = t(rng.normal(size=(B, Sq, H, Dh)), dtype)
+        k = t(rng.normal(size=(B, Skv, H, Dh)), dtype)
+        v = t(rng.normal(size=(B, Skv, H, Dh)), dtype)
+        qp = torch.arange(Sq, dtype=torch.int32, device=dev).expand(
+            B, Sq).contiguous()
+        kvp = torch.arange(Skv, dtype=torch.int32, device=dev).expand(
+            B, Skv).contiguous()
+        kvp[0, 130:] = -1                      # padded frames
+        kvp[1] = -1                            # no valid key: mean(V)
+        # row 2 keeps all 200 keys: its last tile (192-199) is ragged
+        out = fa_ops.flash_attention(q, k, v, q_positions=qp,
+                                     kv_positions=kvp, causal=False)
+        ref = flash_attention_ref(q, k, v, q_positions=qp, kv_positions=kvp,
+                                  causal=False)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **op_tol(torch, dtype))
+    res = {}
+    for name, Sq, valid in (("encoder", 1500, 1500), ("cross", 64, 1000)):
+        B, Skv, H, Dh = 1, 1500, 6, 64
+        q = t(rng.normal(size=(B, Sq, H, Dh)), torch.bfloat16)
+        k = t(rng.normal(size=(B, Skv, H, Dh)), torch.bfloat16)
+        v = t(rng.normal(size=(B, Skv, H, Dh)), torch.bfloat16)
+        qp = torch.arange(Sq, dtype=torch.int32, device=dev)[None]
+        kvp = torch.arange(Skv, dtype=torch.int32, device=dev)[None]
+        kvp = torch.where(kvp < valid, kvp, -1).to(torch.int32).contiguous()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = (kvp >= 0)[:, None, None, :]
+
+        def run():
+            return fa_ops.flash_attention(q, k, v, q_positions=qp,
+                                          kv_positions=kvp, causal=False)
+
+        def plain():
+            return flash_attention_ref(q, k, v, q_positions=qp,
+                                       kv_positions=kvp, causal=False)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=None if valid == Skv else mask)
+
+        n_tc = fa_ops.tensor_core_launches
+        ref = plain()
+        err, rms_err, rms_ref, ok = bf16_agreement(torch, run(), ref)
+        assert fa_ops.tensor_core_launches == n_tc + 1, \
+            "non-causal flash missed the tensor cores"
+        assert ok, f"non-causal flash {name}: {err}, RMS {rms_err}/{rms_ref}"
+        control = flash_attention_ref(
+            q, k, v, q_positions=qp,
+            kv_positions=last_tile_dropped(torch, kvp), causal=False)
+        c_err, c_rms, _, c_ok = bf16_agreement(torch, control, ref)
+        assert not c_ok, "the check cannot see a dropped last key tile"
+        nbytes = 2 * q.numel() * 2 + 2 * B * valid * H * Dh * 2 \
+            + 4 * (Sq + Skv)
+        b_ms, b_by = bound(nbytes, 4 * Sq * valid * H * Dh, "bfloat16")
+        r = {"shape": f"B={B},Sq={Sq},Skv={Skv}({valid} valid),H=Hkv={H},"
+                      f"Dh={Dh},causal=0,bf16",
+             "max_abs_err": err, "ms": time_ms(torch, run),
+             "device_ms": profile_calls(torch, run, 20)[1],
+             "plain_ms": time_ms(torch, plain, iters=5, warmup=1),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": time_ms(torch, library)}
+        res[name] = r
+        log("kernels.flash_noncausal", call=name, shape=r["shape"],
+            max_abs_err=f"{err:.3e}", rms_err=f"{rms_err:.3e}",
+            ref_rms=f"{rms_ref:.3e}", tolerance=BF16_AGREEMENT,
+            control_last_tile_dropped=f"max {c_err:.3e}, RMS {c_rms:.3e}: "
+            "fails", ms=f"{r['ms']:.4f}",
+            device_ms=f"{r['device_ms']:.4f}",
+            plain_ms=f"{r['plain_ms']:.4f}",
+            library_ms=f"{r['library_ms']:.4f}", bound_ms=f"{b_ms:.5f}",
+            bound_by=b_by, body="tensor cores",
+            sweep="f32/bf16 over padded keys, a keyless row and a ragged "
+            "last tile: ok")
+    return res
+
+
+def kernels_decode_cross(torch, F, t, rng, da_ops, decode_attention_ref,
+                         layers):
+    """Whisper's decode cross-attention through ``layers.attention`` (the
+    one-token non-causal query the dispatcher hands the decode kernel at
+    each row's last frame): B=8 rows over 1500 frame slots, 6 heads,
+    Dh 64, bf16, ``enc_len`` 1500, 1000, 750 and 0 twice over.  It must
+    equal the plain non-causal attention by ``bf16_agreement`` and give
+    zeros on an ``enc_len`` 0 row; the call at the decode position (the
+    fault repaired) and a call that drops each row's last key tile must
+    fail that check; it is timed beside the plain version and SDPA.
+    Returns its numbers."""
+    dev = torch.device("cuda")
+    B, T, H, Dh, NL = 8, 1500, 6, 64, 4
+    enc_len = torch.tensor([1500, 1000, 750, 0] * 2, dtype=torch.int32,
+                           device=dev)
+    q = t(rng.normal(size=(B, 1, H, Dh)), torch.bfloat16)
+    # four layers' cross KV cycled (74 MB, past the 50 MB L2)
+    ks = t(rng.normal(size=(NL, B, T, H, Dh)), torch.bfloat16)
+    vs = t(rng.normal(size=(NL, B, T, H, Dh)), torch.bfloat16)
+    frames = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    kvp = torch.where(frames < enc_len[:, None], frames, -1).to(
+        torch.int32).contiguous()
+    pos = torch.full((B, 1), 37, dtype=torch.int32, device=dev)
+    valid = enc_len > 0
+    got = layers.attention(q, ks[0], vs[0], q_positions=pos,
+                           kv_positions=kvp, causal=False, impl="cuda")
+    plain_all = layers.attention(q, ks[0], vs[0], q_positions=pos,
+                                 kv_positions=kvp, causal=False,
+                                 impl="torch")
+    err, rms_err, rms_ref, ok = bf16_agreement(torch, got[valid],
+                                               plain_all[valid])
+    assert ok, f"decode cross: {err}, RMS {rms_err}/{rms_ref}"
+    assert torch.all(got[~valid] == 0), "an enc_len 0 row is not 0"
+    at_pos = da_ops.decode_attention(q, ks[0], vs[0], q_positions=pos,
+                                     kv_positions=kvp)
+    uncorrected, u_rms, _, u_ok = bf16_agreement(torch, at_pos[valid],
+                                                 plain_all[valid])
+    dropped = layers.attention(q, ks[0], vs[0], q_positions=pos,
+                               kv_positions=last_tile_dropped(torch, kvp),
+                               causal=False, impl="torch")
+    c_err, c_rms, _, c_ok = bf16_agreement(torch, dropped[valid],
+                                           plain_all[valid])
+    assert not u_ok and not c_ok, \
+        "the check cannot see the decode position's mask or a dropped tile"
+    rep = kvp.amax(dim=1, keepdim=True)
+    layer = [0]
+
+    def run():
+        i = layer[0] = (layer[0] + 1) % NL
+        return layers.attention(q, ks[i], vs[i], q_positions=pos,
+                                kv_positions=kvp, causal=False, impl="cuda")
+
+    def plain():
+        i = layer[0] = (layer[0] + 1) % NL
+        return decode_attention_ref(q[:, 0], ks[i], vs[i], q_positions=rep,
+                                    kv_positions=kvp)
+
+    qs = q.transpose(1, 2)                                 # (B,H,1,Dh)
+    kt, vt = ks.transpose(2, 3), vs.transpose(2, 3)        # (NL,B,H,T,Dh)
+    mask = (kvp >= 0)[:, None, None, :]
+
+    def library():
+        i = layer[0] = (layer[0] + 1) % NL
+        return F.scaled_dot_product_attention(qs, kt[i], vt[i],
+                                              attn_mask=mask)
+
+    n_keys = int(enc_len.sum().item())
+    nbytes = 2 * q.numel() * 2 + 2 * n_keys * H * Dh * 2 \
+        + 4 * (kvp.numel() + B)
+    b_ms, b_by = bound(nbytes, 4 * Dh * H * n_keys, "bfloat16")
+    s0, n0 = da_ops.split_launches, da_ops.launches
+    run()
+    assert da_ops.split_launches - s0 == da_ops.launches - n0 == 1, \
+        "the cross-attention decode launch was not split"
+    res = {"shape": f"B={B},T={T},H=Hkv={H},G=1,Dh={Dh},bf16,enc_len="
+                    "1500/1000/750/0 x2",
+           "max_abs_err": err, "ms": time_ms(torch, run, iters=48),
+           "device_ms": profile_calls(torch, run, 48)[1],
+           "plain_ms": time_ms(torch, plain, iters=16),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(torch, library, iters=48)}
+    log("kernels.decode_cross", shape=res["shape"], max_abs_err=f"{err:.3e}",
+        rms_err=f"{rms_err:.3e}", ref_rms=f"{rms_ref:.3e}",
+        tolerance=BF16_AGREEMENT, enc_len_0_rows="zeros",
+        uncorrected_position=f"max {uncorrected:.3e}, RMS {u_rms:.3e}: "
+        "fails",
+        control_last_tile_dropped=f"max {c_err:.3e}, RMS {c_rms:.3e}: fails",
+        ms=f"{res['ms']:.4f}", device_ms=f"{res['device_ms']:.4f}",
+        plain_ms=f"{res['plain_ms']:.4f}",
+        library_ms=f"{res['library_ms']:.4f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=b_by, valid_keys=n_keys, bytes=nbytes,
+        all_slots_kv_mb=f"{2 * B * T * H * Dh * 2 / 1e6:.1f}")
+    return res
+
+
+def word_prompts(np, tokenizer, vocab, seed, sizes):
+    """{name: prompt} of ``sizes[name]`` random words (plus BOS)."""
+    words = np.random.default_rng(seed)
+    return {n: tokenizer.tokenize(" ".join(
+        f"w{int(x)}" for x in words.integers(0, 10**6, k)), vocab)
+        for n, k in sizes.items()}
+
+
+def rows_view(torch, model, rows):
+    """Stack dense cache rows along the model's batch axes, as the
+    engine's ``_rebuild_view`` does."""
+    axes = model.cache_batch_axes(rows[0])
+    return {k: torch.cat([r[k] for r in rows], dim=ax)
+            for k, ax in axes.items()}
+
+
+def decode_parity(torch, model, view, tok):
+    """One decode step of ``model`` under impl="cuda" and impl="torch"
+    over copies of ``view``: (max abs difference, logit scale, same
+    argmax)."""
+    logits = {}
+    for impl in ("cuda", "torch"):
+        lg, _ = model.decode_step(tok, {k: v.clone() for k, v in
+                                        view.items()}, impl=impl)
+        assert lg.shape == (len(tok), model.cfg.padded_vocab) \
+            and bool(torch.isfinite(lg).all()), impl
+        logits[impl] = lg.float()
+    diff = (logits["cuda"] - logits["torch"]).abs().max().item()
+    scale = logits["torch"].abs().max().item()
+    return diff, scale, torch.equal(logits["cuda"].argmax(-1),
+                                    logits["torch"].argmax(-1))
+
+
+def f32_copy(torch, build_model, eng):
+    """A float32 copy of the engine's model (bf16 -> f32 is exact)."""
+    m32 = build_model(eng.cfg.replace(dtype="float32"), device=eng.device)
+    m32.load_state_dict(eng.model.state_dict())
+    return m32
+
+
+def parity_fields(diff, scale, same):
+    return {"max_abs_diff": f"{diff:.4e}", "logit_scale": f"{scale:.4e}",
+            "same_argmax": same}
+
+
+def vlm_phases(torch, np, get_config, tokenizer, InferenceEngine,
+               build_model, fa_ops, pd_ops, da_ops, plain_calls):
+    """internvl2-2b at full width in bf16 (random weights and patch
+    embeddings from seed 0 and 7, engine defaults): four requests with 256
+    patch embeddings each and two text-only ones sharing a prefix,
+    through flash prefill and the fused paged decode; the CUDA step
+    against the plain step (bf16, and a float32 copy) on a live step of
+    all six rows, the patch requests among them; the paged arm against
+    the dense view on a float32 copy cut in depth.  Returns the kernels'
+    launches."""
+    cfg = get_config("internvl2-2b")
+    eng = InferenceEngine(cfg, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    load_s = eng.load()
+    prompts, n_shared = family_prompts(
+        np, tokenizer, cfg.vocab_size, 7,
+        {"shared": 100, "text_a": (80, True), "text_b": (150, True),
+         "img_a": (120, False), "img_b": (250, False),
+         "img_c": (180, False), "img_d": (99, False)})
+    assert all(100 <= len(p) <= 300 for p in prompts.values())
+    rng = np.random.default_rng(7)
+    P = cfg.num_patches
+    # the stub frontend's output, at the token embeddings' scale
+    extras = {n: {"patch_embeds": (0.02 * rng.normal(
+        size=(1, P, cfg.d_model))).astype(np.float32)}
+        for n in prompts if n.startswith("img")}
+    max_new = 32
+    kinds = []
+    outs, launches, step_s, admit_s, run_s = serve_checked(
+        torch, eng, prompts, max_new, (tuple(prompts), ()), fa_ops, pd_ops,
+        plain_calls, extras=extras, kinds=kinds)
+    st = eng.stats
+    assert st.prefix_hits >= 1, st.as_dict()
+    assert launches["paged_split"] == launches["paged_decode_attention"], \
+        "a paged launch was not split"
+    assert launches["flash_attention"] == cfg.num_layers * len(admit_s)
+    text_tokens = sum(len(p) for p in prompts.values())
+    assert st.prefill_tokens + st.prefill_tokens_saved \
+        == text_tokens + P * len(extras), st.as_dict()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    patch_ms = [round(1e3 * s, 3) for s, k in zip(admit_s, kinds) if k]
+    text_ms = [round(1e3 * s, 3) for s, k in zip(admit_s, kinds) if not k]
+    decode_s = sum(step_s)
+    log("vlm.run", model=f"internvl2-2b(full width, {cfg.num_layers} layers, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, Dh "
+        f"{cfg.resolved_head_dim}, untied head)", dtype="bf16",
+        params_gb=f"{eng.param_bytes() / 1e9:.3f}", requests=len(outs),
+        with_patches=len(extras), patches_each=P, tokens_each=max_new,
+        shared_prefix=n_shared, prefix_hits=st.prefix_hits,
+        peak_batch=st.peak_batch, decode_steps=len(step_s),
+        prefill_tokens=st.prefill_tokens, load_s=f"{load_s:.3f}",
+        run_s=f"{run_s:.3f}",
+        mean_step_ms=f"{1e3 * decode_s / len(step_s):.3f}",
+        prefill_ms_patch_requests=json.dumps(patch_ms),
+        prefill_ms_text_requests=json.dumps(text_ms),
+        decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
+        max_memory_allocated_gib=f"{peak:.3f}",
+        allocated_before_load_gib=f"{before_gib:.3f}",
+        flash_launches=launches["flash_attention"],
+        flash_tensor_core_launches=launches["flash_tensor_core"],
+        paged_launches=launches["paged_decode_attention"],
+        paged_split_launches=launches["paged_split"],
+        paged_fused_launches=launches["paged_fused"],
+        widest_table_pages=st.widest_decode_table,
+        plain_calls=launches["plain_calls"])
+
+    # the CUDA step against the plain step at full depth, on the engine's
+    # own step once its batch holds the four patch requests (which never
+    # stay warm): the six requests served again, not counted
+    m32 = f32_copy(torch, build_model, eng)
+    got, n_rows, n_patch, row_lens, table_pages = live_step_parity(
+        torch, np, eng, {"bf16": eng.model, "float32": m32}, len(extras),
+        lambda: serve_requests(eng, prompts, max_new, tuple(prompts),
+                               extras=extras))
+    del m32
+    parity = {arm: parity_fields(*r) for arm, r in got.items()}
+    # where a call's time goes: a decode step over the warm rows (padded
+    # to 8) and a cold chunk prefill of a text prompt
+    fields = {}
+    for kind, (call, (wall, busy, top)) in zip(
+            ("decode", "prefill"),
+            profile_engine(torch, np, eng, prompts["text_b"],
+                           max_new).items()):
+        fields.update({f"{kind}_call": call, f"{kind}_wall_ms": f"{wall:.3f}",
+                       f"{kind}_device_busy_ms": f"{busy:.3f}",
+                       f"{kind}_busy_share": f"{busy / wall:.3f}",
+                       f"{kind}_top_kernels_ms": json.dumps(top)})
+    log("vlm.profile", **fields)
+    log("vlm.step_parity", rows=n_rows, patch_rows=n_patch,
+        row_lengths=json.dumps(row_lens), table_pages=table_pages,
+        tolerance="bf16 5e-2*scale, float32 1e-3*scale",
+        arms=json.dumps(parity))
+    for arm, limit in (("bf16", 5e-2), ("float32", 1e-3)):
+        a = parity[arm]
+        assert float(a["max_abs_diff"]) <= limit * float(a["logit_scale"]), a
+
+    # a float32 copy cut in depth: the paged path against the dense view
+    cut = cfg.replace(dtype="float32", num_layers=CUT_LAYERS)
+    sd = cut_copy(eng, CUT_LAYERS)
+    free_engine(torch, eng)
+    arms = {}
+    da_ops.reset_counts()
+    for paged in (True, False):
+        e = InferenceEngine(cut, seed=0, paged_decode=paged)
+        e.load(sd)
+        arms[paged] = serve_requests(e, prompts, max_new, tuple(prompts),
+                                     extras=extras)
+        free_engine(torch, e)
+    launches["decode_attention_dense_view"] = da_ops.launches
+    log("vlm.dense_view", float32_layers=CUT_LAYERS, requests=len(prompts),
+        with_patches=len(extras), paged_vs_dense_view=(
+            "equal" if arms[True] == arms[False] else "differ"),
+        dense_view_decode_launches=da_ops.launches,
+        first_differing_token=json.dumps(
+            {n: first_difference(arms[True][n], arms[False][n])
+             for n in prompts}))
+    assert arms[True] == arms[False], "paged and dense-view tokens differ"
+    assert da_ops.launches > 0, "the dense view launched no decode kernel"
+    return launches
+
+
+def ssm_phases(torch, np, get_config, tokenizer, InferenceEngine,
+               build_model, fa_ops, pd_ops, da_ops, plain_calls):
+    """xlstm-350m at full width in bf16 (random weights from seed 0,
+    engine defaults) through the dense-row path: six requests of 64-256
+    tokens, its profile, prefill plus decode against the teacher-forced
+    forward on a float32 copy, and batch invariance.  It launches no
+    attention kernel: the recurrences are eager PyTorch."""
+    dev = torch.device("cuda")
+    cfg = get_config("xlstm-350m")
+    eng = InferenceEngine(cfg, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    load_s = eng.load()
+    prompts = word_prompts(np, tokenizer, cfg.vocab_size, 9,
+                           {"a": 63, "b": 95, "c": 127, "d": 159, "e": 200,
+                            "f": 255})
+    assert all(64 <= len(p) <= 256 for p in prompts.values())
+    max_new = 32
+    outs, launches, step_s, admit_s, run_s = serve_dense(
+        torch, eng, prompts, max_new, (tuple(prompts), ()), fa_ops, da_ops,
+        pd_ops, plain_calls)
+    kernel_launches = launches["flash_attention"] \
+        + launches["decode_attention"]
+    st = eng.stats
+    assert kernel_launches == 0, launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_tok = sum(len(p) for p in prompts.values())
+    decode_s = sum(step_s)
+
+    # where a call's time goes: the 64-token prefill, and a decode step
+    # over a B=8 view of that request's state
+    model = eng.model
+    toks = torch.as_tensor([prompts["a"]], dtype=torch.int32, device=dev)
+    _, row = model.prefill(toks)
+    view = rows_view(torch, model, [row] * 8)
+    tok8 = torch.arange(8, dtype=torch.int32, device=dev) + 11
+    prof = {}
+    for what, fn, n in (
+            (f"prefill(S={toks.shape[1]})", lambda: model.prefill(toks), 1),
+            ("decode_step(B=8)", lambda: model.decode_step(tok8, view), 3)):
+        wall, busy, top = profile_calls(torch, fn, n)
+        prof[what] = {"wall_ms": f"{wall:.3f}",
+                      "device_busy_ms": f"{busy:.3f}",
+                      "busy_share": f"{busy / wall:.3f}",
+                      "top_kernels_ms": top}
+    del view, row
+    log("ssm.run", model=f"xlstm-350m(full width, {cfg.num_layers // 2} "
+        f"mLSTM/sLSTM pairs, d_model {cfg.d_model}, {cfg.num_heads} heads "
+        f"of {cfg.resolved_head_dim})", dtype="bf16",
+        params_gb=f"{eng.param_bytes() / 1e9:.3f}", requests=len(outs),
+        prompt_tokens=json.dumps({n: len(p) for n, p in prompts.items()}),
+        tokens_each=max_new, peak_batch=st.peak_batch,
+        view_rebuilds=st.view_rebuilds, decode_steps=len(step_s),
+        load_s=f"{load_s:.3f}", run_s=f"{run_s:.3f}",
+        mean_step_ms=f"{1e3 * decode_s / len(step_s):.3f}",
+        prefill_ms_per_request=f"{1e3 * sum(admit_s) / len(admit_s):.3f}",
+        prefill_ms_per_token=f"{1e3 * sum(admit_s) / n_tok:.3f}",
+        decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
+        max_memory_allocated_gib=f"{peak:.3f}",
+        attention_kernel_launches=kernel_launches,
+        plain_calls=launches["plain_calls"], kv_pages="none",
+        profile=json.dumps(prof))
+
+    # prefill plus decode against the teacher-forced forward, float32 copy
+    m32 = f32_copy(torch, build_model, eng)
+    n_dec = 8
+    seq = torch.as_tensor([prompts["a"] + outs["a"][:n_dec]],
+                          dtype=torch.int32, device=dev)
+    S = len(prompts["a"])
+    full, _ = m32(seq)
+    logits, cache = m32.prefill(seq[:, :S])
+    got = [logits[0]]
+    for i in range(n_dec):
+        lg, cache = m32.decode_step(seq[:, S + i], cache)
+        got.append(lg[0])
+    ref = full[0, S - 1:]
+    diff = (torch.stack(got) - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    log("ssm.forward_parity", dtype="float32", prompt=S, decoded=n_dec,
+        positions_checked=n_dec + 1, max_abs_diff=f"{diff:.4e}",
+        logit_scale=f"{scale:.4e}", tolerance="1e-3*scale")
+    assert diff <= 1e-3 * scale, (diff, scale)
+    del m32, full, cache
+
+    # batch invariance: request a alone, bf16 logged, float32 asserted
+    e32, _ = batch_invariance(torch, InferenceEngine, eng, "ssm", prompts,
+                              outs, "a", max_new, (tuple(prompts), ()))
+    free_engine(torch, e32, eng)
+
+
+AUDIO_FRAMES = {"a": 1500, "b": 1500, "c": 1000, "d": 1000, "e": 750,
+                "f": 300}
+
+
+def audio_phases(torch, np, get_config, tokenizer, InferenceEngine,
+                 build_model, fa_ops, pd_ops, da_ops, plain_calls):
+    """whisper-tiny at full width in bf16 (random weights and frames from
+    seed 0 and 8, engine defaults) through the dense-row path: six
+    requests of 4-64 prompt tokens with 1500 to 300 frames each, so rows
+    padded to 1500 frames share a batch: flash for the encoder and the
+    decoder's self- and cross-attention, the decode kernel for both in
+    each step; the CUDA step against the plain step; batch invariance.
+    Returns the kernels' launches."""
+    dev = torch.device("cuda")
+    cfg = get_config("whisper-tiny")
+    eng = InferenceEngine(cfg, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    load_s = eng.load()
+    prompts = word_prompts(np, tokenizer, cfg.vocab_size, 8,
+                           {"a": 15, "b": 3, "c": 63, "d": 31, "e": 7,
+                            "f": 47})
+    assert all(4 <= len(p) <= 64 for p in prompts.values())
+    rng = np.random.default_rng(8)
+    extras = {n: {"frames": rng.normal(size=(1, T, cfg.d_model)).astype(
+        np.float32)} for n, T in AUDIO_FRAMES.items()}
+    max_new = 32
+    requests = (tuple(prompts), ())
+    outs, launches, step_s, admit_s, run_s = serve_dense(
+        torch, eng, prompts, max_new, requests, fa_ops, da_ops, pd_ops,
+        plain_calls, extras=extras)
+    st = eng.stats
+    n_steps, admitted = len(step_s), len(admit_s)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    decode_s = sum(step_s)
+    log("audio.run", model=f"whisper-tiny(full width, {cfg.enc_layers} "
+        f"encoder + {cfg.num_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads, Dh {cfg.resolved_head_dim})", dtype="bf16",
+        params_gb=f"{eng.param_bytes() / 1e9:.4f}", requests=len(outs),
+        frames=json.dumps(AUDIO_FRAMES),
+        prompt_tokens=json.dumps({n: len(p) for n, p in prompts.items()}),
+        tokens_each=max_new, peak_batch=st.peak_batch,
+        view_rebuilds=st.view_rebuilds, decode_steps=n_steps,
+        load_s=f"{load_s:.3f}", run_s=f"{run_s:.3f}",
+        mean_step_ms=f"{1e3 * decode_s / n_steps:.3f}",
+        prefill_ms_per_request=f"{1e3 * sum(admit_s) / admitted:.3f}",
+        decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
+        max_memory_allocated_gib=f"{peak:.3f}", launches=json.dumps(launches))
+    # per request: the encoder's layers, then self- and cross-attention in
+    # each decoder layer; per step: self- and cross-attention decode
+    assert launches["flash_attention"] \
+        == admitted * (cfg.enc_layers + 2 * cfg.num_layers), launches
+    assert launches["decode_attention"] == n_steps * 2 * cfg.num_layers, \
+        (launches, n_steps)
+
+    # the CUDA step against the plain step over a view of four rows with
+    # 1500, 1000, 750 and 300 frames
+    model = eng.model
+    rows = []
+    for n in ("a", "c", "e", "f"):
+        toks = torch.as_tensor([prompts[n]], dtype=torch.int32, device=dev)
+        _, cache = model.prefill(toks, eng._extra(extras[n]["frames"]))
+        rows.append(model.extend_cache(cache,
+                                       eng.max_seq_len - toks.shape[1]))
+    view = rows_view(torch, model, rows)
+    del rows
+    tok4 = torch.arange(4, dtype=torch.int32, device=dev) + 11
+    wall, busy, top = profile_calls(
+        torch, lambda: model.decode_step(tok4, view), 5)
+    log("audio.profile", call="decode_step(B=4, 1500 frame slots)",
+        wall_ms_per_call=f"{wall:.3f}", device_busy_ms_per_call=f"{busy:.3f}",
+        device_busy_share=f"{busy / wall:.3f}",
+        top_kernels_ms_per_call=json.dumps(top))
+    parity = {"bf16": parity_fields(*decode_parity(torch, model, view,
+                                                   tok4))}
+    m32 = f32_copy(torch, build_model, eng)
+    view32 = {k: (v.float() if v.is_floating_point() else v)
+              for k, v in view.items()}
+    parity["float32"] = parity_fields(*decode_parity(torch, m32, view32,
+                                                     tok4))
+    del view, view32, m32
+    log("audio.step_parity", rows=4, frames="1500/1000/750/300",
+        tolerance="bf16 5e-2*scale, float32 1e-3*scale",
+        arms=json.dumps(parity))
+    for arm, limit in (("bf16", 5e-2), ("float32", 1e-3)):
+        a = parity[arm]
+        assert float(a["max_abs_diff"]) <= limit * float(a["logit_scale"]), a
+
+    # batch invariance: the 300-frame request alone and in the batch;
+    # padded frames add exact zeros, so float32 is asserted
+    e32, _ = batch_invariance(torch, InferenceEngine, eng, "audio", prompts,
+                              outs, "f", max_new, requests, extras=extras)
+    free_engine(torch, e32, eng)
     return launches
 
 
@@ -2404,6 +3065,10 @@ def main() -> int:
                                                flash_attention_ref)
     kernels_shared_prefix(torch, t, rng, sp_ops, prefix_attention_ref,
                           shared_prefix_attention_ref, NEG_INF)
+    kernels[0]["noncausal"] = kernels_flash_noncausal(
+        torch, F, t, rng, fa_ops, flash_attention_ref)
+    kernels[2]["cross"] = kernels_decode_cross(
+        torch, F, t, rng, da_ops, decode_attention_ref, layers)
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------- 3. shared prefix
@@ -2487,8 +3152,7 @@ def main() -> int:
         same_argmax=same_argmax)
     # the same step on a float32 copy of the weights: what is left of the
     # difference past f32 rounding is a fault, not bf16 rounding
-    m32 = build_model(cfg.replace(dtype="float32"), device=dev)
-    m32.load_state_dict(eng.model.state_dict())        # bf16 -> f32, exact
+    m32 = f32_copy(torch, build_model, eng)
     diff, scale, same_argmax = step_parity(torch, np, eng, model=m32)[:3]
     del m32
     assert diff <= 1e-3 * scale, (diff, scale)
@@ -2508,28 +3172,14 @@ def main() -> int:
             top_kernels_ms_per_call=json.dumps(top))
 
     # batch invariance: the request decoded first in a batch of up to six
-    # rows, decoded again alone (cold prefill, batch of one)
-    eng.release_warm()
-    alone = eng.generate([prompts["cold_c"]], max_new_tokens=max_new)[0]
-    log("engine.batch_invariance", request="cold_c", batched_vs_alone=
-        "equal" if alone == outs["cold_c"] else "differ",
-        first_differing_token=first_difference(alone, outs["cold_c"]))
-    # the same on a float32 copy of the weights: the attention kernels'
-    # bits do not depend on the batch, but cuBLAS may pick its GEMM by the
-    # batch's row count, so the result is logged, not asserted
-    e32 = InferenceEngine(cfg.replace(dtype="float32"), seed=0)
-    e32.load(eng.model.state_dict())                   # bf16 -> f32, exact
-    outs32 = serve_requests(e32, prompts, max_new, *ENGINE_REQUESTS)
-    alone32 = e32.generate([prompts["cold_c"]], max_new_tokens=max_new)[0]
-    assert all(len(o) == max_new for o in outs32.values()), "short output"
-    log("engine.batch_invariance", dtype="float32", request="cold_c",
-        peak_batch=e32.stats.peak_batch, batched_vs_alone=
-        "equal" if alone32 == outs32["cold_c"] else "differ",
-        first_differing_token=first_difference(alone32, outs32["cold_c"]),
-        tokens_equal_bf16_run=json.dumps(
-            {n: outs32[n] == outs[n] for n in outs}))
+    # rows, decoded again alone (cold prefill, batch of one); on the
+    # float32 copy the attention kernels' bits do not depend on the batch,
+    # but cuBLAS may pick its GEMM by the batch's row count, so the result
+    # is logged, not asserted
+    e32, _ = batch_invariance(torch, InferenceEngine, eng, "engine", prompts,
+                              outs, "cold_c", max_new, ENGINE_REQUESTS,
+                              asserted=False)
     free_engine(torch, e32)
-    eng.shutdown()
 
     engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,
                       pd_ops, InferenceEngine)
@@ -2567,6 +3217,12 @@ def main() -> int:
         runs[key] = dense_family_phase(
             torch, np, arch, get_config, tokenizer, InferenceEngine, fa_ops,
             pd_ops, da_ops, plain_calls)
+    # ------------------------- 9. the VLM, the ssm and the encoder-decoder
+    families = (torch, np, get_config, tokenizer, InferenceEngine,
+                build_model, fa_ops, pd_ops, da_ops, plain_calls)
+    runs["vlm"] = vlm_phases(*families)
+    ssm_phases(*families)
+    audio = audio_phases(*families)
     for key, r in runs.items():
         kernels[0][f"{key}_launches"] = r["flash_attention"]
         kernels[0][f"{key}_tensor_core_launches"] = r["flash_tensor_core"]
@@ -2575,6 +3231,10 @@ def main() -> int:
         if "decode_attention_dense_view" in r:
             kernels[2][f"{key}_dense_view_launches"] = \
                 r["decode_attention_dense_view"]
+    kernels[0]["audio_launches"] = audio["flash_attention"]
+    kernels[0]["audio_tensor_core_launches"] = audio["flash_tensor_core"]
+    kernels[2]["audio_launches"] = audio["decode_attention"]
+    kernels[2]["audio_split_launches"] = audio["decode_split"]
     # the attend-only arms' launches as counted in each path's run (the
     # engines decode fused: kernel_variant="single"/"blocked" is an option
     # no path here takes)
@@ -2586,7 +3246,7 @@ def main() -> int:
             e[f"{key}_launches"] = r[count]
     kernels.extend(arm_entries)
 
-    # ------------------------------------------------------- 9. the report
+    # ------------------------------------------------------ 10. the report
     log("done", wall_s=f"{time.perf_counter() - t_start:.3f}",
         build_s=f"{build.build_seconds:.3f}")
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,15 @@ port's model of ``cfg.family``.  It imports no JAX.
   port's block list, and ``params["leftover"][j]`` the layers after the
   groups.  The RG-LRU's ``b_a``, ``b_x`` and ``lam`` stay float32, as the
   JAX init makes them.
+* VLM: the dense tree (the patch embeddings are request inputs, not
+  weights).
+* ssm (``XLSTMLM``): ``params["pairs"]`` is stacked on a leading pair
+  axis; pair p becomes ``pairs.{p}.mlstm.*`` / ``pairs.{p}.slstm.*``.
+* audio (``EncDecLM``): ``params["enc_blocks"]`` and
+  ``params["dec_blocks"]`` are stacked on a leading layer axis and split
+  into ``enc_blocks.{i}.*`` / ``dec_blocks.{i}.*`` (LayerNorms as
+  ``ln*.w``/``ln*.b``, the decoder's cross-attention as ``xattn.*``);
+  ``enc_ln``, ``dec_ln`` and the tied ``embed`` keep their names.
 * A bf16 JAX array arrives as an ``ml_dtypes`` bfloat16 numpy array,
   which ``torch.from_numpy`` rejects; every leaf goes through float32
   (exact for bf16) and is then cast to its dtype in the port.
@@ -52,32 +61,44 @@ def _flatten(tree, prefix: str = ""):
 
 def params_from_jax(np_params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """JAX params (numpy leaves) -> port state_dict for ``cfg.family``."""
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "ssm", "audio"):
         raise NotImplementedError(f"family {cfg.family!r} is not bridged")
     dtype = getattr(torch, cfg.dtype)
-    sd = {"embed": _tensor(np_params["embed"], dtype),
-          "final_norm": _tensor(np_params["final_norm"], dtype)}
-    if "lm_head" in np_params:
-        sd["lm_head"] = _tensor(np_params["lm_head"], dtype)
+    sd = {"embed": _tensor(np_params["embed"], dtype)}
 
-    def put(layer: int, block, index=None):
-        for name, leaf in _flatten(block):
+    def put(prefix: str, tree, index=None):
+        for name, leaf in _flatten(tree):
             a = leaf if index is None else leaf[index]
-            sd[f"blocks.{layer}.{name}"] = _tensor(
+            sd[f"{prefix}.{name}"] = _tensor(
                 a, torch.float32 if name in _F32_LEAVES else dtype)
 
+    if cfg.family == "audio":
+        for stack, n in (("enc_blocks", cfg.enc_layers),
+                         ("dec_blocks", cfg.num_layers)):
+            for i in range(n):
+                put(f"{stack}.{i}", np_params[stack], i)
+        put("enc_ln", np_params["enc_ln"])
+        put("dec_ln", np_params["dec_ln"])
+        return sd
+    sd["final_norm"] = _tensor(np_params["final_norm"], dtype)
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers // 2):
+            put(f"pairs.{i}", np_params["pairs"], i)
+        return sd
+    if "lm_head" in np_params:
+        sd["lm_head"] = _tensor(np_params["lm_head"], dtype)
     if cfg.family == "hybrid":
         glen = len(cfg.block_pattern or ("rglru", "rglru", "attn"))
         n_groups = cfg.num_layers // glen
         for g in range(n_groups):
             for i in range(glen):
-                put(glen * g + i, np_params["groups"][f"b{i}"], g)
+                put(f"blocks.{glen * g + i}", np_params["groups"][f"b{i}"], g)
         for j, block in enumerate(np_params["leftover"]):
-            put(glen * n_groups + j, block)
+            put(f"blocks.{glen * n_groups + j}", block)
         return sd
     lead = np_params.get("lead_blocks", [])
     for i, block in enumerate(lead):
-        put(i, block)
+        put(f"blocks.{i}", block)
     for i in range(cfg.num_layers - len(lead)):
-        put(len(lead) + i, np_params["blocks"], i)
+        put(f"blocks.{len(lead) + i}", np_params["blocks"], i)
     return sd

@@ -3,9 +3,10 @@
 ``get_config(arch)`` returns the full config and ``get_smoke(arch)`` the
 reduced same-family config the CPU tests use.  The port serves the dense
 ``qwen3-1.7b``, ``qwen3-8b`` and ``llama3.2-3b``, the MoE
-``deepseek-moe-16b`` and the hybrid ``recurrentgemma-2b`` so far; other
-archs raise ``KeyError`` (ROADMAP Queue 1 lists the families still to
-port).
+``deepseek-moe-16b``, the hybrid ``recurrentgemma-2b``, the VLM
+``internvl2-2b``, the ssm ``xlstm-350m`` and the encoder-decoder
+``whisper-tiny``; the two archs that need four cards (``mixtral-8x22b``,
+``deepseek-67b``) raise ``KeyError`` (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -15,9 +16,12 @@ from repro_torch.configs.base import ModelConfig, MoEConfig, round_up
 
 _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "whisper-tiny": "whisper_tiny",
     "llama3.2-3b": "llama32_3b",
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen3-8b": "qwen3_8b",
+    "internvl2-2b": "internvl2_2b",
+    "xlstm-350m": "xlstm_350m",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 

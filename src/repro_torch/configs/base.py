@@ -71,10 +71,15 @@ class ModelConfig:
         return round_up(self.vocab_size, 256)
 
     def param_count(self) -> int:
-        """Analytic parameter count of the ported families (embedding +
-        blocks + head), counted as the JAX package counts it: an MoE
+        """Analytic parameter count (embedding + blocks + head), counted
+        as the JAX package counts it, its approximations included: an MoE
         layer holds its routed and shared experts and its router, a lead
-        layer (``i < first_dense_layers``) a dense FFN of ``d_ff_dense``."""
+        layer (``i < first_dense_layers``) a dense FFN of ``d_ff_dense``;
+        an mLSTM or sLSTM layer ``10 d^2``; every FFN three matrices; an
+        encoder-decoder adds its encoder blocks and one attention and norm
+        a decoder layer for the cross-attention; the head counts unless
+        ``tie_embeddings`` (whisper ties in the model, not in the
+        config)."""
         d, dh = self.d_model, self.resolved_head_dim
         h, hkv = self.num_heads, self.num_kv_heads
         embed = self.padded_vocab * d
@@ -87,7 +92,10 @@ class ModelConfig:
         total = embed + head + d
         for i in range(self.num_layers):
             total += 2 * d
-            if pattern[i % len(pattern)] != "attn":
+            kind = pattern[i % len(pattern)]
+            if kind in ("mlstm", "slstm"):
+                total += 10 * d * d
+            elif kind != "attn":
                 total += rglru + 3 * d * self.d_ff
             elif m is None:
                 total += attn + 3 * d * self.d_ff
@@ -96,6 +104,9 @@ class ModelConfig:
             else:
                 total += attn + (m.num_experts + m.num_shared_experts) \
                     * 3 * d * m.d_ff_expert + d * m.num_experts
+        if self.enc_layers:
+            total += self.enc_layers * (2 * d + attn + 3 * d * self.d_ff)
+            total += self.num_layers * (d + attn)
         return int(total)
 
     def active_param_count(self) -> int:

@@ -22,22 +22,32 @@ transformers (the paged path):
 * greedy outputs do not depend on admission timing: rows are computed
   independently and padding is masked.
 
+Multimodal requests carry their stub frontend's output in ``extra``, as
+in the JAX engine: a VLM request ``patch_embeds`` (1, P, d_model),
+prefilled in full with the patches ahead of its tokens (its pages hold
+P + S rows and decode starts at position P + S); an audio request
+``frames`` (1, T, d_model), encoded at its admission.  Numpy arrays or
+tensors, moved to the engine's device in the model dtype.  A request with
+extras neither shares a prefix nor coalesces.
+
 Two more decode paths, as in the JAX engine:
 
 * dense rows, for models whose ``paged_kv_layout()`` is None (the hybrid
-  recurrentgemma: ring-buffer local attention plus recurrent state): no
-  pages and no prefix sharing (``kv`` stays None); each admitted request
-  keeps its prefill state as one dense cache row, and the rows are
-  stacked along ``cache_batch_axes`` into a decode view (batch padded to
-  a power of two) whenever the batch composition changes;
+  recurrentgemma: ring-buffer local attention plus recurrent state; the
+  xLSTM's recurrent state; whisper's decoder KV and the cross-attention
+  KV over its frames): no pages and no prefix sharing (``kv`` stays
+  None); each admitted request keeps its prefill state as one dense
+  cache row, and the rows are stacked along ``cache_batch_axes`` into a
+  decode view (batch padded to a power of two) whenever the batch
+  composition changes;
 * the dense view (``paged_decode=False`` on a paged model), the JAX
   engine's A/B reference: rows are gathered from their pages into a
   dense view, ``decode_step`` runs over it, and each step's new K/V
   (``decode_kv_taps``) is appended back to the pages.
 
-Both decode one token over a dense cache in the ``decode_attention``
-kernel.  The engine runs on ``device`` ("cuda" by default; it never moves
-to the CPU on its own).
+Both decode one token over a dense cache, attention in the
+``decode_attention`` kernel.  The engine runs on ``device`` ("cuda" by
+default; it never moves to the CPU on its own).
 """
 from __future__ import annotations
 
@@ -695,18 +705,37 @@ class InferenceEngine:
     def _tokens(self, rows) -> torch.Tensor:
         return torch.as_tensor(rows, dtype=torch.int32).to(self.device)
 
+    def _extra(self, value) -> torch.Tensor:
+        """A request's ``patch_embeds`` or ``frames`` (numpy, any float
+        dtype, or a tensor) on the engine's device in the model dtype."""
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.asarray(value, np.float32))
+        return value.to(self.device, self.model.dtype)
+
+    def _prefill(self, req: _Request):
+        """The full prefill of one prompt with its request's extras: an
+        audio request's ``frames`` go through the encoder, a VLM request's
+        ``patch_embeds`` are prepended to its tokens."""
+        tokens = self._tokens([req.prompt])
+        if self.cfg.family == "audio":
+            if "frames" not in req.extra:
+                raise ValueError("an audio request carries its frames")
+            return self.model.prefill(tokens, self._extra(req.extra["frames"]))
+        if self.cfg.family == "vlm" \
+                and req.extra.get("patch_embeds") is not None:
+            return self.model.prefill(
+                tokens, prefix_embeds=self._extra(req.extra["patch_embeds"]))
+        return self.model.prefill(tokens)
+
     def _admit_one(self, req: _Request) -> _Slot:
         if not self._loaded:
             self.load()
-        if {"patch_embeds", "frames"} & set(req.extra):
-            raise NotImplementedError(
-                "multimodal requests are not ported yet (ROADMAP Queue 1)")
         S = len(req.prompt)
         slot = _Slot(req=req, remaining=req.max_new,
                      gen=self._request_gen(req))
         if not self._paged_layout:
             # dense row: the prefill state, grown to the engine's horizon
-            logits, cache = self.model.prefill(self._tokens([req.prompt]))
+            logits, cache = self._prefill(req)
             slot.row = self.model.extend_cache(cache, self.max_seq_len - S)
             slot.length = S
             self.stats.prefill_tokens += S
@@ -719,8 +748,10 @@ class InferenceEngine:
         if shareable:
             # deepest-first; cap at S-1 so one fresh token remains
             donor, shared = self._find_warm_donor(req.prompt, cap=S - 1)
-        self._ensure_pages(-(-(S - shared + req.max_new) // self.page_size)
-                           + 1, protect=donor)
+        patches = req.extra.get("patch_embeds")
+        n_patch = 0 if patches is None else patches.shape[-2]
+        self._ensure_pages(-(-(S - shared + n_patch + req.max_new)
+                             // self.page_size) + 1, protect=donor)
         if donor is not None:
             logits = self._prefill_shared(slot, donor, shared)
             self.stats.prefix_hits += 1
@@ -732,10 +763,12 @@ class InferenceEngine:
             logits = self._prefill_cold(slot)
             self.stats.prefill_tokens += S
         else:
-            logits, cache = self.model.prefill(self._tokens([req.prompt]))
+            # one full prefill; the patches' rows lead the sequence's pages
+            logits, cache = self._prefill(req)
+            s_kv = S + n_patch
             slot.seq_id = kv.add_sequence(
-                *self.model.cache_kv_rows_dev(cache, 0, S))
-            self.stats.prefill_tokens += S
+                *self.model.cache_kv_rows_dev(cache, 0, s_kv))
+            self.stats.prefill_tokens += s_kv
         slot.length = kv.sequences[slot.seq_id].length
         if shareable:
             self.warm_prefixes.insert(req.prompt, payload=slot.seq_id,

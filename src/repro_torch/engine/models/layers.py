@@ -8,10 +8,15 @@ there:
   JAX package, so its weights bridge over without a transpose;
 * activations flow in ``cfg.dtype`` (bf16 by default); norms, RoPE and
   softmax run in f32;
+* GELU is the tanh approximation, ``jax.nn.gelu``'s default (PyTorch's
+  default is the erf form);
 * attention has two implementations, selected by ``cfg.attention_impl``:
   ``"torch"`` (plain math, the counterpart of ``attention_xla``) and
   ``"cuda"`` (the hand-written kernels under ``repro_torch.kernels``:
-  flash prefill for a query block, flash-decode for one token).
+  flash prefill for a query block, flash-decode for one token).  A
+  one-token query with ``causal=False`` (whisper's decode cross-attention)
+  sees every valid key, as under ``attention_xla``: the JAX ``"pallas"``
+  path drops ``causal`` there (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -27,6 +33,18 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 # ---------------------------------------------------------------------------
 # initializers (explicit generator; its device is where the weights land)
 # ---------------------------------------------------------------------------
+
+
+def param(*shape, dtype, device) -> nn.Parameter:
+    """A zero parameter the model's init or a ``load_state_dict`` fills."""
+    return nn.Parameter(torch.zeros(*shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def param_dict(shapes, dtype, device) -> nn.ParameterDict:
+    """``param`` for each ``{name: shape}``."""
+    return nn.ParameterDict({n: param(*s, dtype=dtype, device=device)
+                             for n, s in shapes.items()})
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -44,7 +62,7 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
 
 
 # ---------------------------------------------------------------------------
-# norm and rotary embedding
+# norms, rotary and sinusoidal positions
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -54,6 +72,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * (1.0 + weight.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 over the last axis, population variance (as
+    ``jnp.var``), scaled by ``weight`` and shifted by ``bias``."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float,
@@ -76,6 +105,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(length: int, dim: int,
+                         device=None) -> torch.Tensor:
+    """(length, dim) f32 table: sin at even columns, cos at odd ones."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * (-math.log(10000.0) / dim))
+    pe = torch.zeros(length, dim, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -96,7 +137,12 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True, window=0,
               impl: str = "cuda"):
     """Dispatch between the plain math and the CUDA kernels: under
     ``"cuda"`` a one-token query goes to the decode kernel, longer ones to
-    the flash kernel."""
+    the flash kernel.
+
+    The decode kernel masks keys past the query position.  A non-causal
+    one-token query (window 0 on every such call) therefore takes each
+    row's largest key position as its own, so it sees every valid key;
+    a row with none (-1) gives 0."""
     if impl == "torch":
         return attention_torch(q, k, v, q_positions=q_positions,
                                kv_positions=kv_positions, causal=causal,
@@ -104,6 +150,9 @@ def attention(q, k, v, *, q_positions, kv_positions, causal=True, window=0,
     if impl == "cuda":
         if q.shape[1] == 1:
             # one new token over a contiguous or ring cache (decode_step)
+            if not causal:
+                assert window == 0, "a non-causal call has no window"
+                q_positions = kv_positions.amax(dim=1, keepdim=True)
             return da_ops.decode_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 q_positions=q_positions.to(torch.int32).contiguous(),
@@ -157,8 +206,13 @@ def attn_out(p, o):
 
 
 # ---------------------------------------------------------------------------
-# feed-forward (SwiGLU / GeGLU)
+# feed-forward (SwiGLU; non-gated GELU)
 # ---------------------------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
 
 def ffn_init(gen, d_model, d_ff, dtype):
     return {
@@ -170,3 +224,8 @@ def ffn_init(gen, d_model, d_ff, dtype):
 
 def ffn_apply(p, x):
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def ffn_apply_nogate(p, x):
+    """Whisper's FFN: ``gelu(x @ w_up) @ w_down``."""
+    return gelu(x @ p["w_up"]) @ p["w_down"]

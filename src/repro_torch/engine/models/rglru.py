@@ -83,17 +83,11 @@ def rglru_step(p, u_t: torch.Tensor, h_prev: torch.Tensor
 # blocks
 # ---------------------------------------------------------------------------
 
-def _param(*shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(*shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
 def _mlp(cfg: ModelConfig, dtype, device) -> nn.ParameterDict:
     d = cfg.d_model
-    return nn.ParameterDict(
-        {n: _param(*s, dtype=dtype, device=device)
-         for n, s in (("ln", (d,)), ("w_gate", (d, cfg.d_ff)),
-                      ("w_up", (d, cfg.d_ff)), ("w_down", (cfg.d_ff, d)))})
+    return L.param_dict({"ln": (d,), "w_gate": (d, cfg.d_ff),
+                         "w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d)},
+                        dtype, device)
 
 
 class RecurrentBlock(nn.Module):
@@ -103,19 +97,19 @@ class RecurrentBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, d_rnn: int, dtype, device):
         super().__init__()
         d = cfg.d_model
-        self.ln = _param(d, dtype=dtype, device=device)
-        self.w_gate = _param(d, d_rnn, dtype=dtype, device=device)
-        self.w_in = _param(d, d_rnn, dtype=dtype, device=device)
-        self.conv_w = _param(cfg.conv1d_width, d_rnn, dtype=dtype,
-                             device=device)
+        self.ln = L.param(d, dtype=dtype, device=device)
+        self.w_gate = L.param(d, d_rnn, dtype=dtype, device=device)
+        self.w_in = L.param(d, d_rnn, dtype=dtype, device=device)
+        self.conv_w = L.param(cfg.conv1d_width, d_rnn, dtype=dtype,
+                              device=device)
         f32 = torch.float32
         self.rg = nn.ParameterDict({
-            "w_a": _param(d_rnn, d_rnn, dtype=dtype, device=device),
-            "b_a": _param(d_rnn, dtype=f32, device=device),
-            "w_x": _param(d_rnn, d_rnn, dtype=dtype, device=device),
-            "b_x": _param(d_rnn, dtype=f32, device=device),
-            "lam": _param(d_rnn, dtype=f32, device=device)})
-        self.w_out = _param(d_rnn, d, dtype=dtype, device=device)
+            "w_a": L.param(d_rnn, d_rnn, dtype=dtype, device=device),
+            "b_a": L.param(d_rnn, dtype=f32, device=device),
+            "w_x": L.param(d_rnn, d_rnn, dtype=dtype, device=device),
+            "b_x": L.param(d_rnn, dtype=f32, device=device),
+            "lam": L.param(d_rnn, dtype=f32, device=device)})
+        self.w_out = L.param(d_rnn, d, dtype=dtype, device=device)
         self.mlp = _mlp(cfg, dtype, device)
 
 
@@ -126,11 +120,10 @@ class AttentionBlock(nn.Module):
         super().__init__()
         d, dh = cfg.d_model, head_dim
         h, hkv = cfg.num_heads, cfg.num_kv_heads
-        self.ln = _param(d, dtype=dtype, device=device)
-        self.attn = nn.ParameterDict(
-            {n: _param(*s, dtype=dtype, device=device)
-             for n, s in (("wq", (d, h * dh)), ("wk", (d, hkv * dh)),
-                          ("wv", (d, hkv * dh)), ("wo", (h * dh, d)))})
+        self.ln = L.param(d, dtype=dtype, device=device)
+        self.attn = L.param_dict({"wq": (d, h * dh), "wk": (d, hkv * dh),
+                                  "wv": (d, hkv * dh), "wo": (h * dh, d)},
+                                 dtype, device)
         self.mlp = _mlp(cfg, dtype, device)
 
 
@@ -155,9 +148,9 @@ class GriffinLM(nn.Module):
         if any(k != "rglru" for k in self.pattern[:self.n_leftover]):
             raise NotImplementedError("leftover blocks must be recurrent, "
                                       "as in the JAX model")
-        self.embed = _param(cfg.padded_vocab, cfg.d_model, dtype=self.dtype,
-                            device=device)
-        self.final_norm = _param(cfg.d_model, dtype=self.dtype, device=device)
+        self.embed = L.param(cfg.padded_vocab, cfg.d_model, dtype=self.dtype,
+                             device=device)
+        self.final_norm = L.param(cfg.d_model, dtype=self.dtype, device=device)
         self.blocks = nn.ModuleList(
             RecurrentBlock(cfg, self.d_rnn, self.dtype, device)
             if self._kind(l) == "rglru"
@@ -219,7 +212,7 @@ class GriffinLM(nn.Module):
         """(B,S,D) -> (x, (h_last (B,D_rnn) f32, conv buffer (B,W-1,D_rnn)))."""
         W = self.cfg.conv1d_width
         h = L.rms_norm(x, blk.ln, self.cfg.norm_eps)
-        gate = F.gelu(h @ blk.w_gate, approximate="tanh")
+        gate = L.gelu(h @ blk.w_gate)
         u_in = h @ blk.w_in
         hr = rglru_sequence(blk.rg, causal_conv1d(u_in, blk.conv_w), impl)
         x = x + (gate * hr.to(x.dtype)) @ blk.w_out
@@ -356,7 +349,7 @@ class GriffinLM(nn.Module):
 
             if isinstance(blk, RecurrentBlock):
                 h = L.rms_norm(x, blk.ln, cfg.norm_eps)
-                gate = F.gelu(h @ blk.w_gate, approximate="tanh")
+                gate = L.gelu(h @ blk.w_gate)
                 conv = state("conv")
                 u_t, new_conv = causal_conv1d_step(h @ blk.w_in, conv,
                                                    blk.conv_w)

@@ -1,12 +1,16 @@
-"""Decoder-only transformer LM, dense and MoE families, as a PyTorch module.
+"""Decoder-only transformer LM, dense, MoE and VLM families, as a PyTorch
+module.
 
 The counterpart of ``repro/engine/models/transformer.py`` for the dense
 family (qwen3-1.7b and qwen3-8b: GQA, qk-norm; llama3.2-3b: three query
-heads per KV head, no qk-norm) and the MoE family (deepseek-moe-16b: its
+heads per KV head, no qk-norm), the MoE family (deepseek-moe-16b: its
 first ``first_dense_layers`` layers keep a dense FFN of ``d_ff_dense``,
-the rest route through ``moe.py``).  Sliding-window attention and the VLM
-prefix are not ported yet and raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 9).
+the rest route through ``moe.py``) and the VLM (internvl2-2b: the dense
+backbone; ``forward`` and ``prefill`` take ``prefix_embeds`` (B, P,
+d_model), the stub frontend's patch embeddings, prepended before the
+first block at positions 0..P-1, so the cache holds P + S rows).
+Sliding-window attention is not ported yet and raises
+``NotImplementedError`` (ROADMAP Queue 1 item 9).
 
 Weights are ``(in, out)`` as in the JAX package; the blocks are a
 ``ModuleList`` where the JAX package stacks them on a leading layer axis
@@ -35,11 +39,6 @@ from repro_torch.kernels.paged_decode_attention import ops as pd_ops
 Cache = Dict[str, torch.Tensor]
 
 
-def _param(*shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(*shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
 class Block(nn.Module):
     """One pre-norm attention block with a SwiGLU FFN (``ffn``) or, in an
     MoE layer, the experts (``moe``); the other is None."""
@@ -49,25 +48,21 @@ class Block(nn.Module):
         super().__init__()
         d, dh = cfg.d_model, head_dim
         h, hkv = cfg.num_heads, cfg.num_kv_heads
-        self.ln1 = _param(d, dtype=dtype, device=device)
-        self.ln2 = _param(d, dtype=dtype, device=device)
+        self.ln1 = L.param(d, dtype=dtype, device=device)
+        self.ln2 = L.param(d, dtype=dtype, device=device)
         attn = {"wq": (d, h * dh), "wk": (d, hkv * dh), "wv": (d, hkv * dh),
                 "wo": (h * dh, d)}
         if cfg.qk_norm:
             attn.update(q_norm=(dh,), k_norm=(dh,))
-        self.attn = nn.ParameterDict(
-            {n: _param(*s, dtype=dtype, device=device)
-             for n, s in attn.items()})
+        self.attn = L.param_dict(attn, dtype, device)
         m = cfg.moe
         self.ffn = self.moe = None
         if m is not None and layer >= m.first_dense_layers:
             self.moe = M.MoE(d, m, dtype, device)
             return
         d_ff = m.d_ff_dense if m is not None else cfg.d_ff
-        self.ffn = nn.ParameterDict(
-            {n: _param(*s, dtype=dtype, device=device)
-             for n, s in (("w_gate", (d, d_ff)), ("w_up", (d, d_ff)),
-                          ("w_down", (d_ff, d)))})
+        self.ffn = L.param_dict({"w_gate": (d, d_ff), "w_up": (d, d_ff),
+                                 "w_down": (d_ff, d)}, dtype, device)
 
 
 class TransformerLM(nn.Module):
@@ -77,22 +72,22 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1)")
-        if cfg.swa_window or cfg.num_patches:
+                f"family {cfg.family!r} is not a transformer LM")
+        if cfg.swa_window:
             raise NotImplementedError(
-                "sliding-window attention and the VLM prefix are not "
-                "ported yet (ROADMAP Queue 1 item 9)")
+                "sliding-window attention is not ported yet (ROADMAP "
+                "Queue 1 item 9)")
         self.cfg = cfg
         self.head_dim = cfg.resolved_head_dim
         self.dtype = getattr(torch, cfg.dtype)
-        self.embed = _param(cfg.padded_vocab, cfg.d_model, dtype=self.dtype,
-                            device=device)
-        self.final_norm = _param(cfg.d_model, dtype=self.dtype, device=device)
+        self.embed = L.param(cfg.padded_vocab, cfg.d_model, dtype=self.dtype,
+                             device=device)
+        self.final_norm = L.param(cfg.d_model, dtype=self.dtype, device=device)
         if not cfg.tie_embeddings:
-            self.lm_head = _param(cfg.d_model, cfg.padded_vocab,
-                                  dtype=self.dtype, device=device)
+            self.lm_head = L.param(cfg.d_model, cfg.padded_vocab,
+                                   dtype=self.dtype, device=device)
         self.blocks = nn.ModuleList(
             Block(cfg, self.head_dim, self.dtype, device, layer=i)
             for i in range(cfg.num_layers))
@@ -160,26 +155,34 @@ class TransformerLM(nn.Module):
 
     # --------------------------------------------------------------- forward
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor, impl: Optional[str] = None
+    def forward(self, tokens: torch.Tensor, impl: Optional[str] = None,
+                prefix_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Teacher-forced forward.  Returns (logits (B,S,Vpad), aux): the
+        """Teacher-forced forward.  Returns (logits (B,P+S,Vpad), aux): the
         MoE layers' aux losses summed in layer order, float32 (0 for a
         dense model)."""
         aux = []
-        logits, _ = self._run_prompt(tokens, impl, all_logits=True, aux=aux)
+        logits, _ = self._run_prompt(tokens, impl, all_logits=True, aux=aux,
+                                     prefix_embeds=prefix_embeds)
         return logits, sum(aux, torch.zeros((), device=tokens.device))
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, impl: Optional[str] = None
+    def prefill(self, tokens: torch.Tensor, impl: Optional[str] = None,
+                prefix_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
-        """Run the full prompt; return (last-position logits, filled cache
-        ``{"k", "v": (L,B,S,Hkv,Dh), "length": (B,) int32}``)."""
-        return self._run_prompt(tokens, impl, all_logits=False)
+        """Run the full prompt, after ``prefix_embeds`` when given; return
+        (last-position logits, filled cache ``{"k", "v": (L,B,P+S,Hkv,Dh),
+        "length": (B,) int32}``)."""
+        return self._run_prompt(tokens, impl, all_logits=False,
+                                prefix_embeds=prefix_embeds)
 
-    def _run_prompt(self, tokens, impl, all_logits, aux=None):
+    def _run_prompt(self, tokens, impl, all_logits, aux=None,
+                    prefix_embeds=None):
         cfg = self.cfg
         impl = impl or cfg.attention_impl
         x = self.embed[tokens]
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S).contiguous()

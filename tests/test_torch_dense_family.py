@@ -43,7 +43,9 @@ def _one_torch_thread():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen3-8b", "llama3.2-3b",
-                                  "deepseek-moe-16b", "recurrentgemma-2b"])
+                                  "deepseek-moe-16b", "recurrentgemma-2b",
+                                  "internvl2-2b", "xlstm-350m",
+                                  "whisper-tiny"])
 def test_param_counts_equal_jax(arch):
     """The counts, and the cost model's profile built on them (resident
     bytes, active parameters per token), equal the JAX package's."""

@@ -54,6 +54,10 @@ def test_every_module_imports_without_jax():
               "repro_torch.engine.models.moe",
               "repro_torch.engine.models.rglru",
               "repro_torch.engine.models.xlstm",
+              "repro_torch.engine.models.encdec",
+              "repro_torch.configs.internvl2_2b",
+              "repro_torch.configs.xlstm_350m",
+              "repro_torch.configs.whisper_tiny",
               "repro_torch.kernels.decode_attention.ops",
               "repro_torch.kernels.rglru_scan.ops",
               "repro_torch.kernels.shared_prefix_attention.ops",
@@ -82,6 +86,9 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert PKG / "configs" / "recurrentgemma_2b.py" in sources
     assert PKG / "engine" / "models" / "rglru.py" in sources
     assert PKG / "engine" / "models" / "moe.py" in sources
+    assert PKG / "engine" / "models" / "encdec.py" in sources
+    assert PKG / "engine" / "models" / "xlstm.py" in sources
+    assert PKG / "configs" / "whisper_tiny.py" in sources
     assert PKG / "configs" / "deepseek_moe_16b.py" in sources
     assert PKG / "kernels" / "shared_prefix_attention" / "ops.py" in sources
     for sub in ("core", "workloads", "runtime", "launch"):
@@ -107,6 +114,19 @@ def test_engine_defaults_to_cuda_and_raises_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(get_smoke("qwen3-1.7b"))
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "xlstm-350m",
+                                  "whisper-tiny"])
+def test_multimodal_and_recurrent_engines_raise_without_a_card(arch):
+    """The VLM, ssm and encoder-decoder engines ask for the card by
+    default too; the CPU is reached only when asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngine(get_smoke(arch))
+    eng = InferenceEngine(get_smoke(arch), device="cpu")
+    assert eng.model.device.type == "meta" and eng.device.type == "cpu"
 
 
 def test_processor_entry_points_default_to_cuda_and_raise_without_a_card():
@@ -136,23 +156,26 @@ def test_processor_entry_points_default_to_cuda_and_raise_without_a_card():
 
 
 def test_registry_holds_the_ported_config_only():
-    """The registry holds the five ported archs, each equal to the JAX
+    """The registry holds the eight ported archs, each equal to the JAX
     package's config (full and smoke), and nothing else: an unported arch
-    (mixtral-8x22b, sliding-window MoE) raises."""
+    (mixtral-8x22b, sliding-window MoE, four cards) raises."""
     from repro.configs import get_config as jax_config
     from repro.configs import get_smoke as jax_smoke
     from repro_torch.configs import ARCH_IDS
-    assert ARCH_IDS == ("deepseek-moe-16b", "llama3.2-3b", "qwen3-1.7b",
-                        "qwen3-8b", "recurrentgemma-2b")
+    assert ARCH_IDS == ("deepseek-moe-16b", "whisper-tiny", "llama3.2-3b",
+                        "qwen3-1.7b", "qwen3-8b", "internvl2-2b",
+                        "xlstm-350m", "recurrentgemma-2b")
     fields = ("name", "family", "num_layers", "d_model", "num_heads",
               "num_kv_heads", "d_ff", "vocab_size", "head_dim",
               "rope_theta", "qk_norm", "tie_embeddings", "norm_eps",
               "dtype", "block_pattern", "local_attn_window", "lru_width",
-              "conv1d_width", "swa_window", "moe")
+              "conv1d_width", "swa_window", "moe", "enc_layers",
+              "enc_max_len", "num_patches", "supports_partial_prefix")
     for arch, vocab in (("qwen3-1.7b", 152064),
                         ("recurrentgemma-2b", 256000),
                         ("deepseek-moe-16b", 102400), ("qwen3-8b", 152064),
-                        ("llama3.2-3b", 128256)):
+                        ("llama3.2-3b", 128256), ("internvl2-2b", 92672),
+                        ("xlstm-350m", 50432), ("whisper-tiny", 51968)):
         for mine, ref in ((get_config(arch), jax_config(arch)),
                           (get_smoke(arch), jax_smoke(arch))):
             for f in fields:
