@@ -95,10 +95,26 @@ each:
    encoder, self- and cross-attention, decode for both, launch counts
    asserted; its profile; step parity; batch invariance of the 300-frame
    request, float32 asserted);
-10. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
-   single and blocked arms as entries of their own), the card's
-   ``nvidia-smi`` line, and the last line ``{"ok": true, "device":
-   {...}}``.
+10. training, each model freed before the next: the flash backward
+   (``[kernels.flash_bwd]``) at qwen3's, the hybrid's (also with a
+   128-key window) and whisper's encoder and cross-attention shapes, f32
+   and bf16 against its plain version, the forward's log-sum-exp, a row
+   with no valid key, a control that drops a dV tile; the scan backward
+   (``[kernels.scan_bwd]``) against autograd through the plain scan;
+   full-width qwen3-1.7b through ``train_loop`` (``[train.qwen3]``: bf16,
+   B=8, S=512, remat, 20 steps; the loss must fall; 28 forward, 28
+   recompute and 28 backward flash launches a step, the forward ones on
+   the tensor cores; no plain version; its profile);
+   ``[train.grad_parity]`` (kernels against plain versions on a float32
+   copy cut to 4 layers, a control that drops dK); ``[train.checkpoint]``
+   (a resume at step 10 against the continuous run, a control with the
+   moments lost); ``[train.hybrid]`` (recurrentgemma-2b, 3 steps, the
+   flash and scan backward counted) and ``[train.audio]`` (whisper-tiny,
+   3 steps over 1500 frames: causal, non-causal and cross backward);
+11. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
+   single and blocked arms as entries of their own; the two backward
+   kernels last), the card's ``nvidia-smi`` line, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the last
 line.  Without a CUDA device it exits 2 before doing anything.
@@ -1542,7 +1558,8 @@ def kernels_at_grouping(torch, F, rng, arch, H, Hkv):
     ``kernels_paged_one_chunk``.  Returns {"flash": {...}, "paged":
     {...}, "arms": {"single": {...}, "blocked": {...}}}."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
     from repro_torch.kernels.paged_decode_attention import ops as pd_ops
     from repro_torch.kernels.paged_decode_attention.ref import (
         fused_paged_decode_attention_ref, paged_decode_attention_ref,
@@ -2882,6 +2899,564 @@ def audio_phases(torch, np, get_config, tokenizer, InferenceEngine,
     return launches
 
 
+# --------------------------------------------------------------- training
+
+def flash_bwd_pairs(torch, qp, kvp, causal, window):
+    """Valid (query, key) pairs of these positions, summed over the batch
+    (the same for every head)."""
+    q, k = qp[:, :, None], kvp[:, None, :]
+    mask = (k >= 0).expand(-1, qp.shape[1], -1)
+    if causal:
+        mask = mask & (k <= q)
+    if window:
+        mask = mask & (k > q - window)
+    return int(mask.sum())
+
+
+def f32_agreement(torch, out, ref, tol=1e-4):
+    """(max abs error, the reference's largest magnitude, whether the error
+    is within ``tol`` of it)."""
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    return err, scale, err <= tol * max(scale, 1e-6)
+
+
+# what the kernels line keeps of each [kernels.flash_bwd] shape
+BWD_KEYS = ("shape", "body", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+# name, B, Sq, Skv, H, Hkv, Dh, causal, window, valid keys
+FLASH_BWD_SHAPES = (
+    ("qwen3", 8, 512, 512, 16, 8, 128, True, 0, 512),
+    ("hybrid", 4, 512, 512, 10, 1, 256, True, 2048, 512),
+    ("hybrid_window128", 4, 512, 512, 10, 1, 256, True, 128, 512),
+    ("whisper_encoder", 8, 1500, 1500, 6, 6, 64, False, 0, 1500),
+    ("whisper_cross", 8, 128, 1500, 6, 6, 64, False, 0, 1000),
+)
+
+
+def kernels_flash_bwd(torch, F, fa_ops, flash_attention_bwd_ref,
+                      flash_attention_lse_ref):
+    """The flash backward at the training paths' shapes: dQ, dK, dV through
+    the autograd Function (the forward kernel with its log-sum-exp, then
+    the backward kernel) against ``flash_attention_bwd_ref`` on the same
+    inputs, in f32 (within 1e-4 of each gradient's scale) and bf16
+    (``bf16_agreement``); the forward's lse against its plain version; a
+    control with the last valid KV tile's dV dropped must fail; a row with
+    no valid key gets dQ = 0, adds nothing to dK and sends dO/Skv to every
+    key's dV.  Timed in bf16 (events and the profiler's device time)
+    beside the plain version and SDPA's backward (never called by the
+    port).  Returns {shape: numbers}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    res = {}
+    for (name, B, Sq, Skv, H, Hkv, Dh, causal, window,
+         valid) in FLASH_BWD_SHAPES:
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+
+        x32 = (rand(B, Sq, H, Dh), rand(B, Skv, Hkv, Dh),
+               rand(B, Skv, Hkv, Dh), rand(B, Sq, H, Dh))
+        qp = torch.arange(Sq, dtype=torch.int32, device=dev).expand(
+            B, Sq).contiguous()
+        if causal:                          # queries at the end of the keys
+            qp = qp + (Skv - Sq)
+        kvp = torch.arange(Skv, dtype=torch.int32, device=dev)[None]
+        kvp = torch.where(kvp < valid, kvp, -1).expand(
+            B, Skv).to(torch.int32).contiguous()
+        kw = dict(q_positions=qp, kv_positions=kvp, causal=causal,
+                  window=window)
+        r = {"shape": f"B={B},Sq={Sq},Skv={Skv}({valid} valid),H={H},"
+                      f"Hkv={Hkv},Dh={Dh},causal={int(causal)},"
+                      f"window={window}"}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (t.to(dtype) for t in x32)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            n_bwd = fa_ops.bwd_launches
+            fa_ops.flash_attention(*leaves, **kw).backward(do)
+            assert fa_ops.bwd_launches == n_bwd + 1
+            got = [t.grad for t in leaves]
+            ref = flash_attention_bwd_ref(q, k, v, do, **kw)
+            _, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+            lse_err = (lse - flash_attention_lse_ref(q, k, **kw)).abs() \
+                .max().item()
+            assert lse_err <= 1e-3, (name, dtype, lse_err)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            for n, a, b in zip("qkv", got, ref):
+                if dtype == torch.float32:
+                    err, scale, ok = f32_agreement(torch, a, b)
+                    r[f"d{n}_f32"] = f"max {err:.3e} of scale {scale:.3e}"
+                else:
+                    err, rms_err, rms_ref, ok = bf16_agreement(torch, a, b)
+                    r[f"d{n}_bf16"] = (f"max {err:.3e}, RMS {rms_err:.3e} "
+                                       f"of {rms_ref:.3e}")
+                    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+                assert ok, (name, tag, n, r)
+            r[f"lse_err_{tag}"] = lse_err
+        # control: the last valid KV tile's dV dropped
+        dv_c = got[2].clone()
+        dv_c[:, (valid - 1) // 64 * 64:valid] = 0
+        c_err, c_rms, _, c_ok = bf16_agreement(torch, dv_c, ref[2])
+        assert not c_ok, (name, "the check cannot see a dropped dV tile")
+        r["control_dv_last_tile_dropped"] = \
+            f"max {c_err:.3e}, RMS {c_rms:.3e}: fails"
+
+        q, k, v, do = (t.to(torch.bfloat16) for t in x32)
+        _, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+
+        def run():
+            return fa_ops.flash_attention_bwd(q, k, v, do, lse, **kw)
+
+        def plain():
+            return flash_attention_bwd_ref(q, k, v, do, **kw)
+
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        mask = None
+        if window or valid < Skv:
+            qq, kk = qp[:, None, :, None], kvp[:, None, None, :]
+            mask = (kk >= 0) & (kk <= qq) if causal else kk >= 0
+            if window:
+                mask = mask & (kk > qq - window)
+        o = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=H != Hkv)
+        dot = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(o, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        pairs = flash_bwd_pairs(torch, qp, kvp, causal, window)
+        esz = 2
+        nbytes = 3 * q.numel() * esz + 4 * k.numel() * esz \
+            + 4 * B * H * Sq + 4 * (B * Sq + B * Skv)
+        b_ms, b_by = bound(nbytes, 10 * Dh * H * pairs, "bfloat16")
+        r.update({"ms": time_ms(torch, run, iters=10),
+                  "device_ms": profile_calls(torch, run, 5)[1],
+                  "plain_ms": time_ms(torch, plain, iters=2, warmup=1),
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": time_ms(torch, library, iters=10)})
+        del o, qt, kt, vt
+        res[name] = r
+        r["body"] = "tensor cores" if fa_ops.bwd_uses_tensor_cores(
+            torch.bfloat16, Dh) else "CUDA cores"
+        log("kernels.flash_bwd", call=name,
+            **{k_: (f"{v_:.5g}" if isinstance(v_, float) else v_)
+               for k_, v_ in r.items()},
+            tolerance=f"f32 1e-4*scale; bf16 {BF16_AGREEMENT}",
+            kernels="3 (D, dK/dV, dQ); f32 on the CUDA cores")
+        torch.cuda.empty_cache()
+
+    # a row with no valid key at qwen3's width: only it carries dO
+    B, S, H, Hkv, Dh = 2, 128, 16, 8, 128
+    q, k, v, do = (torch.randn(*s, generator=gen, device=dev).to(
+        torch.bfloat16) for s in ((B, S, H, Dh), (B, S, Hkv, Dh),
+                                   (B, S, Hkv, Dh), (B, S, H, Dh)))
+    qp = torch.arange(S, dtype=torch.int32, device=dev).expand(
+        B, S).contiguous()
+    qp[0, 5] = -1
+    do = torch.where(torch.arange(B * S, device=dev).reshape(B, S, 1, 1)
+                     == 5, do, torch.zeros_like(do))
+    kw = dict(q_positions=qp, kv_positions=qp.clone(), causal=True)
+    _, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+    assert lse[0, :, 5].eq(-1e30).all(), "a keyless row's lse mark"
+    dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, do, lse, **kw)
+    _, _, dv_ref = flash_attention_bwd_ref(q, k, v, do, **kw)
+    want = (do[0, 5].float().reshape(Hkv, H // Hkv, Dh).sum(1)
+            * torch.tensor(1.0 / S).to(torch.bfloat16).float())
+    assert dq.eq(0).all() and dk.eq(0).all() and dv[1].eq(0).all()
+    err, _, _, ok = bf16_agreement(torch, dv[0], want[None].expand(
+        S, Hkv, Dh))
+    assert ok and bf16_agreement(torch, dv, dv_ref)[3], err
+    log("kernels.flash_bwd", call="keyless_row", shape=f"B={B},S={S},"
+        f"H={H},Hkv={Hkv},Dh={Dh}", lse="NEG_INF", dq="0", dk="0",
+        dv=f"dO/Skv on every key (max err {err:.3e})")
+    return res
+
+
+def kernels_scan_bwd(torch, lru_ops, linear_scan_ref, linear_scan_bwd_ref):
+    """The scan's backward at the hybrid's training shape (4, 512, 2560):
+    through the autograd Function (the reversed scan in the forward
+    kernel) against autograd through ``linear_scan_ref`` in f32 and, bit
+    for bit, against ``linear_scan_bwd_ref``; a control that reverses the
+    adjoint without the shift of a by one must fail.  Returns its kernels
+    entry."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    B, S, D = 4, 512, 2560
+    a = torch.rand(B, S, D, generator=gen, device=dev) * 0.5 + 0.5
+    b = torch.randn(B, S, D, generator=gen, device=dev)
+    dh = torch.randn(B, S, D, generator=gen, device=dev)
+    la, lb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    n_bwd = lru_ops.bwd_launches
+    h = lru_ops.linear_scan(la, lb)
+    h.backward(dh)
+    assert lru_ops.bwd_launches == n_bwd + 1
+    ra, rb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    linear_scan_ref(ra, rb).backward(dh)
+    errs = {}
+    for n, got, want in (("da", la.grad, ra.grad), ("db", lb.grad, rb.grad)):
+        err, scale, ok = f32_agreement(torch, got, want, tol=1e-5)
+        assert ok, (n, err, scale)
+        errs[n] = f"max {err:.3e} of scale {scale:.3e}"
+    da, db = linear_scan_bwd_ref(a, h.detach(), dh)
+    assert torch.equal(la.grad, da) and torch.equal(lb.grad, db)
+    # control: g_t = dh_t + a_t g_{t+1} (a not shifted)
+    g_c = linear_scan_ref(a.flip(1), dh.flip(1)).flip(1)
+    c_err, _, c_ok = f32_agreement(torch, g_c, rb.grad, tol=1e-5)
+    assert not c_ok, "the check cannot see an unshifted adjoint"
+    hd = h.detach()
+
+    def run():
+        return lru_ops.linear_scan_bwd(a, hd, dh)
+
+    b_ms, b_by = bound(5 * B * S * D * 4, 3 * B * S * D, "float32")
+    entry = {
+        "name": "linear_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/engine/models/rglru.py:57 (the associative "
+                    "scan under jax.grad; no Pallas backward)",
+        "launches": None, "max_abs_err": max(
+            (la.grad - ra.grad).abs().max().item(),
+            (lb.grad - rb.grad).abs().max().item()),
+        "ms": time_ms(torch, run, iters=20),
+        "device_ms": profile_calls(torch, run, 20)[1],
+        "plain_ms": time_ms(torch, lambda: linear_scan_bwd_ref(a, hd, dh),
+                            iters=2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library_note": "no single PyTorch call computes the reversed "
+                        "recurrence"}
+    log("kernels.scan_bwd", shape=f"B={B},S={S},D={D},f32",
+        vs_autograd_through_plain=json.dumps(errs),
+        vs_plain_bwd="bitwise", control_unshifted_adjoint=
+        f"max {c_err:.3e}: fails", ms=f"{entry['ms']:.4f}",
+        device_ms=f"{entry['device_ms']:.4f}",
+        plain_ms=f"{entry['plain_ms']:.4f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=b_by, library_ms="none")
+    return entry
+
+
+def worst_grad_gap(torch, grads, ref):
+    """(the largest max|g - ref| / ||ref|| over the leaves, its leaf)."""
+    worst = (0.0, None)
+    for name, g in grads.items():
+        r = ref[name].float()
+        gap = (g.float() - r).abs().max().item() \
+            / max(torch.linalg.vector_norm(r).item(), 1e-12)
+        worst = max(worst, (gap, name))
+    return worst
+
+
+def train_counts(fa_ops, lru_ops):
+    return {"flash": fa_ops.launches,
+            "flash_tensor_core": fa_ops.tensor_core_launches,
+            "flash_bwd": fa_ops.bwd_launches,
+            "flash_bwd_tensor_core": fa_ops.bwd_tensor_core_launches,
+            "scan": lru_ops.launches, "scan_bwd": lru_ops.bwd_launches}
+
+
+def device_batch(torch, data, step, dev, **extra):
+    out = {k: torch.from_numpy(v).to(dev)
+           for k, v in data.batch_at(step).items()}
+    out.update(extra)
+    return out
+
+
+def free_cuda(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phases(torch, np, get_config, build_model, fa_ops, lru_ops,
+                 plain_calls):
+    """Training on the card through the port's entry points: full-width
+    qwen3-1.7b through ``train_loop`` (bf16, B=8, S=512, remat, 20 steps),
+    its launch counts per step and its profile; one step's gradients
+    through the kernels against the plain versions (a float32 copy cut to
+    4 layers, asserted; the full bf16 model, logged); a checkpoint at step
+    10 resumed in a fresh ``train_loop`` against the continuous run; then
+    recurrentgemma-2b (B=4, S=512, 3 steps) and whisper-tiny (B=8, 128
+    tokens over 1500 frames, 3 steps).  Returns launch counts for the
+    kernels line."""
+    import statistics
+    import tempfile
+
+    from repro_torch.training import (AdamWConfig, DataConfig,
+                                      SyntheticLMData, TrainerConfig,
+                                      load_checkpoint, make_train_step,
+                                      train_loop)
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.trainer import loss_and_grads
+
+    dev = torch.device("cuda")
+    out_counts = {}
+
+    # ------------------------------------------------------- train.qwen3
+    cfg = get_config("qwen3-1.7b")
+    L = cfg.num_layers
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=512, global_batch=8)
+    data = SyntheticLMData(dcfg)
+    steps = 20
+    tcfg = TrainerConfig(remat=True, adamw=AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=steps))
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_counts()
+    lru_ops.reset_counts()
+    plain0 = plain_calls["n"]
+    t0 = time.perf_counter()
+    out = train_loop(cfg, tcfg, dcfg, num_steps=steps, log_every=5, seed=0)
+    run_s = time.perf_counter() - t0
+    counts = train_counts(fa_ops, lru_ops)
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), hist
+    assert losses[-1] < losses[0], losses
+    assert plain_calls["n"] == plain0, "a plain version ran"
+    assert counts["flash"] == counts["flash_tensor_core"] == 2 * L * steps \
+        and counts["flash_bwd"] == counts["flash_bwd_tensor_core"] \
+        == L * steps, counts
+    step_ms = 1e3 * statistics.median(h["seconds"] for h in hist[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out_counts["flash_bwd"] = counts["flash_bwd"]
+    out_counts["flash_train"] = counts["flash"]
+
+    # one more step, split: the forward's launches, then the backward's
+    model, opt = out["model"], out["opt_state"]
+    params = dict(model.named_parameters())
+    batch = device_batch(torch, data, steps, dev)
+    fa_ops.reset_counts()
+    loss = model.loss_fn(batch, remat=True)
+    fwd = fa_ops.launches
+    grads = torch.autograd.grad(loss, list(params.values()))
+    split = {"forward": fwd, "recompute": fa_ops.launches - fwd,
+             "backward": fa_ops.bwd_launches,
+             "tensor_core": fa_ops.tensor_core_launches,
+             "backward_tensor_core": fa_ops.bwd_tensor_core_launches}
+    del grads, loss
+    assert split == {"forward": L, "recompute": L, "backward": L,
+                     "tensor_core": 2 * L, "backward_tensor_core": L}, split
+    step_fn = make_train_step(model, tcfg)
+    wall, busy, top = profile_calls(torch, lambda: step_fn(opt, batch), 1)
+    log("train.qwen3", model=f"qwen3-1.7b(full width, {L} layers, "
+        f"{cfg.param_count() / 1e9:.3f}B params)", dtype="bf16",
+        batch="B=8,S=512", remat=True, steps=steps, lr=1e-3, warmup=2,
+        loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+        losses=json.dumps([round(x, 4) for x in losses]),
+        grad_norms=json.dumps([round(x, 4) for x in gnorms]),
+        step_ms_median_2_20=f"{step_ms:.3f}",
+        tokens_per_s=f"{4096 / step_ms * 1e3:.1f}", run_s=f"{run_s:.3f}",
+        max_memory_allocated_gib=f"{peak:.3f}",
+        launches_per_step=json.dumps(split), launches=json.dumps(counts),
+        plain_calls=plain_calls["n"] - plain0)
+    log("train.qwen3.profile", call="one train step (B=8, S=512)",
+        wall_ms=f"{wall:.3f}", device_busy_ms=f"{busy:.3f}",
+        device_busy_share=f"{busy / wall:.3f}",
+        top_kernels_ms=json.dumps(top))
+
+    # the bf16 full-depth arm of the gradient parity, logged
+    g_cuda = loss_and_grads(model, batch, remat=True, impl="cuda")[1]
+    g_plain = loss_and_grads(model, batch, remat=True, impl="torch")[1]
+    bf16_gap, bf16_leaf = worst_grad_gap(torch, g_cuda, g_plain)
+    del g_cuda, g_plain, out, model, opt, params, step_fn, batch
+    free_cuda(torch)
+
+    # ------------------------------------------------- train.grad_parity
+    cfg4 = cfg.replace(num_layers=4, dtype="float32", param_dtype="float32")
+    m32 = build_model(cfg4, device=dev).init(
+        torch.Generator(device=dev).manual_seed(1))
+    m32.requires_grad_(True)
+    batch = device_batch(torch, data, 0, dev)
+    plain0 = plain_calls["n"]
+    g_cuda = loss_and_grads(m32, batch, remat=True, impl="cuda")[1]
+    assert plain_calls["n"] == plain0, "a plain version ran"
+    g_plain = loss_and_grads(m32, batch, remat=True, impl="torch")[1]
+    gap, leaf = worst_grad_gap(torch, g_cuda, g_plain)
+    assert gap <= 1e-4, (gap, leaf)
+    # control: the attention backward with its dK dropped
+    orig = fa_ops.flash_attention_bwd
+
+    def no_dk(*a, **kw):
+        dq, dk, dv = orig(*a, **kw)
+        return dq, torch.zeros_like(dk), dv
+
+    fa_ops.flash_attention_bwd = no_dk
+    try:
+        g_ctrl = loss_and_grads(m32, batch, remat=True, impl="cuda")[1]
+    finally:
+        fa_ops.flash_attention_bwd = orig
+    c_gap, c_leaf = worst_grad_gap(torch, g_ctrl, g_plain)
+    assert c_gap > 1e-4, "the check cannot see a dropped dK"
+    log("train.grad_parity", model="qwen3-1.7b float32 copy cut to 4 "
+        "layers (full width)", batch="B=8,S=512", remat=True,
+        worst_leaf=leaf, worst_max_abs_over_norm=f"{gap:.3e}",
+        tolerance="1e-4 of each gradient's norm",
+        control_dk_dropped=f"{c_leaf}: {c_gap:.3e}, fails",
+        bf16_full_depth=f"{bf16_leaf}: {bf16_gap:.3e} (logged)")
+    del m32, g_cuda, g_plain, g_ctrl
+    free_cuda(torch)
+
+    # -------------------------------------------------- train.checkpoint
+    cfgc = cfg.replace(num_layers=4)
+    tc = TrainerConfig(remat=True, adamw=AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=12))
+    kw = dict(seed=3, log_every=100)
+    with tempfile.TemporaryDirectory() as d:
+        cont = train_loop(cfgc, tc, dcfg, num_steps=12, **kw)
+        cont_params = {n: p.detach().clone()
+                       for n, p in cont["params"].items()}
+        cont_hist = cont["history"]
+        del cont
+        free_cuda(torch)
+        t0 = time.perf_counter()
+        first = train_loop(cfgc, tc, dcfg, num_steps=10, ckpt_dir=d,
+                           ckpt_every=10, **kw)
+        init_save_s = time.perf_counter() - t0 - sum(
+            h["seconds"] for h in first["history"])
+        del first
+        free_cuda(torch)
+        resumed = train_loop(cfgc, tc, dcfg, num_steps=12, ckpt_dir=d, **kw)
+        hist = resumed["history"]
+        assert [h["step"] for h in hist] == [10, 11], hist
+        rel = max(abs(h[k] - c[k]) / max(abs(c[k]), 1e-12)
+                  for h, c in zip(hist, cont_hist[10:])
+                  for k in ("loss", "grad_norm"))
+        same = all(h[k] == c[k] for h, c in zip(hist, cont_hist[10:])
+                   for k in ("loss", "grad_norm")) and all(
+            torch.equal(p.detach(), cont_params[n])
+            for n, p in resumed["params"].items())
+        assert same or rel <= 1e-5, rel
+        # control: the same checkpoint with its moments zeroed
+        model = resumed["model"]
+        params = dict(model.named_parameters())
+        like = (params, adamw_init(params))
+        del resumed
+        _, loaded, opt, _ = load_checkpoint(
+            str(pathlib.Path(d) / "step_000000010"), like)
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(loaded[n])
+        opt["m"] = {n: torch.zeros_like(t) for n, t in opt["m"].items()}
+        opt["v"] = {n: torch.zeros_like(t) for n, t in opt["v"].items()}
+        step_fn = make_train_step(model, tc)
+        ctrl = []
+        for s in (10, 11):
+            opt, met = step_fn(opt, device_batch(torch, data, s, dev))
+            ctrl.append(float(met["loss"]))
+        assert ctrl[1] != cont_hist[11]["loss"], \
+            "the check cannot see lost optimizer moments"
+        del model, params, like, loaded, opt, step_fn
+    log("train.checkpoint", model="qwen3-1.7b bf16 cut to 4 layers (full "
+        "width)", saved_at=10, resumed_steps="11-12",
+        continuous=json.dumps([[h["loss"], h["grad_norm"]]
+                               for h in cont_hist[10:]]),
+        resumed=json.dumps([[h["loss"], h["grad_norm"]] for h in hist]),
+        result="equal (losses, grad norms and every parameter bitwise)"
+        if same else f"within {rel:.3e} relative (1e-5 allowed)",
+        init_and_save_s=f"{init_save_s:.3f}", control_moments_zeroed=
+        f"step 12 loss {ctrl[1]:.6f} vs {cont_hist[11]['loss']:.6f}: fails")
+    del cont_params
+    free_cuda(torch)
+
+    # ------------------------------------------------------ train.hybrid
+    cfg = get_config("recurrentgemma-2b")
+    n_attn = sum(1 for i in range(cfg.num_layers)
+                 if (cfg.block_pattern or ("rglru", "rglru", "attn"))[i % 3]
+                 == "attn")
+    n_rec = cfg.num_layers - n_attn
+    n_left = cfg.num_layers % 3
+    steps = 3
+    dh = DataConfig(vocab_size=cfg.vocab_size, seq_len=512, global_batch=4)
+    th = TrainerConfig(remat=True, adamw=AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=steps))
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.reset_counts()
+    lru_ops.reset_counts()
+    plain0 = plain_calls["n"]
+    out = train_loop(cfg, th, dh, num_steps=steps, log_every=1, seed=0)
+    counts = train_counts(fa_ops, lru_ops)
+    hist = out["history"]
+    assert all(np.isfinite([h["loss"] for h in hist])), hist
+    assert plain_calls["n"] == plain0, "a plain version ran"
+    # the groups are rematerialized (forward twice), the leftovers not
+    want = {"flash": 2 * n_attn * steps, "flash_bwd": n_attn * steps,
+            "scan": (2 * (n_rec - n_left) + n_left) * steps,
+            "scan_bwd": n_rec * steps}
+    assert all(counts[k] == n for k, n in want.items()), (counts, want)
+    # Dh 256: the forward on the tensor cores, the backward on the CUDA
+    # cores
+    assert counts["flash_tensor_core"] == counts["flash"] \
+        and counts["flash_bwd_tensor_core"] == 0, counts
+    out_counts["scan_bwd"] = counts["scan_bwd"]
+    log("train.hybrid", model=f"recurrentgemma-2b(full width, "
+        f"{cfg.num_layers} blocks: {n_attn} attention at Dh 256, {n_rec} "
+        f"RG-LRU)", dtype="bf16", batch="B=4,S=512", steps=steps,
+        losses=json.dumps([round(h["loss"], 4) for h in hist]),
+        grad_norms=json.dumps([round(h["grad_norm"], 4) for h in hist]),
+        step_ms=json.dumps([round(1e3 * h["seconds"], 3) for h in hist]),
+        max_memory_allocated_gib=
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        launches=json.dumps(counts))
+    del out
+    free_cuda(torch)
+
+    # ------------------------------------------------------- train.audio
+    cfg = get_config("whisper-tiny")
+    model = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(True)
+    da = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                    global_batch=8))
+    frames = torch.randn(8, cfg.enc_max_len, cfg.d_model, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(8))
+    steps = 3
+    ta = TrainerConfig(remat=True, adamw=AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=steps))
+    step_fn = make_train_step(model, ta)
+    opt = adamw_init(dict(model.named_parameters()))
+    fa_ops.reset_counts()
+    plain0 = plain_calls["n"]
+    calls = {}
+    orig = fa_ops.flash_attention_bwd
+
+    def by_kind(q, k, *a, causal=True, **kw):
+        kind = "causal" if causal else (
+            "noncausal_self" if q.shape[1] == k.shape[1] else "cross")
+        calls[kind] = calls.get(kind, 0) + 1
+        return orig(q, k, *a, causal=causal, **kw)
+
+    fa_ops.flash_attention_bwd = by_kind
+    losses, step_s = [], []
+    try:
+        for s in range(steps):
+            t0 = time.perf_counter()
+            opt, met = step_fn(opt, device_batch(torch, da, s, dev,
+                                                 frames=frames))
+            losses.append(float(met["loss"]))
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        fa_ops.flash_attention_bwd = orig
+    counts = train_counts(fa_ops, lru_ops)
+    assert all(np.isfinite(losses)), losses
+    assert plain_calls["n"] == plain0, "a plain version ran"
+    E, Ld = cfg.enc_layers, cfg.num_layers
+    assert calls == {"noncausal_self": E * steps, "causal": Ld * steps,
+                     "cross": Ld * steps}, calls
+    assert counts["flash"] == counts["flash_tensor_core"] \
+        == 2 * (E + 2 * Ld) * steps and counts["flash_bwd"] \
+        == counts["flash_bwd_tensor_core"] == (E + 2 * Ld) * steps, counts
+    log("train.audio", model=f"whisper-tiny(full width, {E} + {Ld} layers, "
+        f"d_model {cfg.d_model}, 6 heads of 64)", dtype="bf16",
+        batch=f"B=8, 128 tokens, {cfg.enc_max_len} frames", steps=steps,
+        losses=json.dumps([round(x, 4) for x in losses]),
+        step_ms=json.dumps([round(1e3 * x, 3) for x in step_s]),
+        flash_bwd_by_kind=json.dumps(calls), launches=json.dumps(counts))
+    del model, opt, step_fn, frames
+    free_cuda(torch)
+    return out_counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2901,13 +3476,15 @@ def main() -> int:
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, lse_combine)
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
     from repro_torch.kernels.paged_decode_attention import ops as pd_ops
     from repro_torch.kernels.paged_decode_attention.ref import (
         fused_paged_decode_attention_ref, paged_decode_attention_ref,
         scatter_append_ref)
     from repro_torch.kernels.rglru_scan import ops as lru_ops
-    from repro_torch.kernels.rglru_scan.ref import linear_scan_ref
+    from repro_torch.kernels.rglru_scan.ref import (linear_scan_bwd_ref,
+                                                   linear_scan_ref)
     from repro_torch.kernels.shared_prefix_attention import ops as sp_ops
     from repro_torch.kernels.shared_prefix_attention.ref import (
         prefix_attention_ref, shared_prefix_attention_ref)
@@ -3105,6 +3682,10 @@ def main() -> int:
     da_ops.decode_attention_ref = counted(da_ops.decode_attention_ref)
     lru_ops.linear_scan_ref = counted(lru_ops.linear_scan_ref)
     rglru.linear_scan_ref = counted(rglru.linear_scan_ref)
+    # the backward's plain versions (the training phases)
+    fa_ops.flash_attention_bwd_ref = counted(fa_ops.flash_attention_bwd_ref)
+    fa_ops.flash_attention_lse_ref = counted(fa_ops.flash_attention_lse_ref)
+    lru_ops.linear_scan_bwd_ref = counted(lru_ops.linear_scan_bwd_ref)
 
     outs, launches, step_s, admit_s, run_s = serve_checked(
         torch, eng, prompts, max_new, ENGINE_REQUESTS, fa_ops, pd_ops,
@@ -3246,7 +3827,28 @@ def main() -> int:
             e[f"{key}_launches"] = r[count]
     kernels.extend(arm_entries)
 
-    # ------------------------------------------------------ 10. the report
+    # ----------------------------------------------------- 10. training
+    flash_bwd = kernels_flash_bwd(torch, F, fa_ops, flash_attention_bwd_ref,
+                                  flash_attention_lse_ref)
+    scan_bwd = kernels_scan_bwd(torch, lru_ops, linear_scan_ref,
+                                linear_scan_bwd_ref)
+    trained = train_phases(torch, np, get_config, build_model, fa_ops,
+                           lru_ops, plain_calls)
+    main_bwd = flash_bwd.pop("qwen3")
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": f"{csrc}/flash_attention_bwd.cu",
+        "replaces": "src/repro/engine/models/layers.py:93 (attention_xla "
+                    "under jax.grad; no Pallas backward)",
+        "launches": trained["flash_bwd"],
+        **{k: main_bwd[k] for k in BWD_KEYS},
+        "shapes": {n: {k: r[k] for k in BWD_KEYS}
+                   for n, r in flash_bwd.items()}})
+    kernels[0]["train_launches"] = trained["flash_train"]
+    scan_bwd["launches"] = trained["scan_bwd"]
+    kernels.append(scan_bwd)
+
+    # ------------------------------------------------------ 11. the report
     log("done", wall_s=f"{time.perf_counter() - t_start:.3f}",
         build_s=f"{build.build_seconds:.3f}")
     print(json.dumps({"kernels": kernels}))

@@ -33,10 +33,15 @@ port's model of ``cfg.family``.  It imports no JAX.
 * A bf16 JAX array arrives as an ``ml_dtypes`` bfloat16 numpy array,
   which ``torch.from_numpy`` rejects; every leaf goes through float32
   (exact for bf16) and is then cast to its dtype in the port.
+* A tree shaped like the params (a gradient, an AdamW moment) maps the
+  same way; ``dtype`` then names the one dtype of every leaf.
+  ``opt_state_from_jax`` carries the JAX optimizer state ``{"m", "v",
+  "step"}`` over with its moments kept float32, as both optimizers keep
+  them.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -59,18 +64,23 @@ def _flatten(tree, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
-def params_from_jax(np_params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """JAX params (numpy leaves) -> port state_dict for ``cfg.family``."""
+def params_from_jax(np_params, cfg: ModelConfig,
+                    dtype: Optional[torch.dtype] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX params (numpy leaves) -> port state_dict for ``cfg.family``:
+    each leaf in ``cfg.dtype`` (``_F32_LEAVES`` in float32), or every leaf
+    in ``dtype`` when it is given."""
     if cfg.family not in ("dense", "moe", "vlm", "hybrid", "ssm", "audio"):
         raise NotImplementedError(f"family {cfg.family!r} is not bridged")
-    dtype = getattr(torch, cfg.dtype)
+    f32_dtype = dtype or torch.float32
+    dtype = dtype or getattr(torch, cfg.dtype)
     sd = {"embed": _tensor(np_params["embed"], dtype)}
 
     def put(prefix: str, tree, index=None):
         for name, leaf in _flatten(tree):
             a = leaf if index is None else leaf[index]
             sd[f"{prefix}.{name}"] = _tensor(
-                a, torch.float32 if name in _F32_LEAVES else dtype)
+                a, f32_dtype if name in _F32_LEAVES else dtype)
 
     if cfg.family == "audio":
         for stack, n in (("enc_blocks", cfg.enc_layers),
@@ -102,3 +112,12 @@ def params_from_jax(np_params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     for i in range(cfg.num_layers - len(lead)):
         put(f"blocks.{len(lead) + i}", np_params["blocks"], i)
     return sd
+
+
+def opt_state_from_jax(np_state, cfg: ModelConfig) -> Dict:
+    """The JAX AdamW state ``{"m", "v", "step"}`` (numpy leaves) -> the
+    port's: moments keyed as the model's parameters, float32, and the step
+    as an int32 host tensor."""
+    return {"m": params_from_jax(np_state["m"], cfg, dtype=torch.float32),
+            "v": params_from_jax(np_state["v"], cfg, dtype=torch.float32),
+            "step": torch.tensor(int(np_state["step"]), dtype=torch.int32)}

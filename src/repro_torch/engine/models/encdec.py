@@ -16,8 +16,11 @@ so that rows with different frame counts stack into one decode batch:
 ``enc_len`` masks the padded slots.  A decode step's cross-attention is a
 one-token non-causal query, which ``layers.attention`` hands the decode
 kernel with each row's last frame as its position.  ``decode_step``
-writes the new token's K/V into ``k``/``v`` IN PLACE.  Inference only: the
-parameters do not require grad.
+writes the new token's K/V into ``k``/``v`` IN PLACE.  Serving runs
+under ``torch.no_grad()``; ``loss_fn`` trains through ``forward_train``
+(the batch carries ``frames``), which holds no KV and, with ``remat``,
+rematerializes each encoder and decoder block in the backward (the JAX
+function takes ``remat`` and ignores it: the same values either way).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.models import layers as L
@@ -140,30 +144,61 @@ class EncDecLM(nn.Module):
         return ((enc_out @ p["wk"]).reshape(shape),
                 (enc_out @ p["wv"]).reshape(shape))
 
+    @staticmethod
+    def _run(fn, remat, *args):
+        """``fn(*args)``, rematerialized in the backward with ``remat``."""
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     # --------------------------------------------------------------- encoder
-    @torch.no_grad()
-    def encode(self, frames: torch.Tensor,
-               impl: Optional[str] = None) -> torch.Tensor:
-        """frames: (B, T, D) stub frontend output -> encoder states."""
-        impl = impl or self.cfg.attention_impl
+    def _enc_block(self, blk: Block, x, positions, impl):
+        q, k, v = self._qkv(blk.attn, self._ln(blk.ln1, x), positions)
+        o = L.attention(q, k, v, q_positions=positions,
+                        kv_positions=positions, causal=False, impl=impl)
+        x = x + L.attn_out(blk.attn, o)
+        return x + L.ffn_apply_nogate(blk.ffn, self._ln(blk.ln2, x))
+
+    def _encode(self, frames, impl, remat=False):
         B, T, _ = frames.shape
         x = frames.to(self.dtype) + self._positions_table(T)[None]
         positions = torch.arange(T, dtype=torch.int32,
                                  device=x.device).expand(B, T).contiguous()
         for blk in self.enc_blocks:
-            q, k, v = self._qkv(blk.attn, self._ln(blk.ln1, x), positions)
-            o = L.attention(q, k, v, q_positions=positions,
-                            kv_positions=positions, causal=False, impl=impl)
-            x = x + L.attn_out(blk.attn, o)
-            x = x + L.ffn_apply_nogate(blk.ffn, self._ln(blk.ln2, x))
+            x = self._run(self._enc_block, remat, blk, x, positions, impl)
         return self._ln(self.enc_ln, x)
 
+    @torch.no_grad()
+    def encode(self, frames: torch.Tensor,
+               impl: Optional[str] = None) -> torch.Tensor:
+        """frames: (B, T, D) stub frontend output -> encoder states."""
+        return self._encode(frames, impl or self.cfg.attention_impl)
+
     # --------------------------------------------------------------- decoder
-    def _dec_prompt(self, tokens, frames, impl, all_logits):
-        """Encode, then run the decoder over the whole prompt.  Returns
-        (logits, per-layer (k, v, xk, xv), T_enc)."""
-        impl = impl or self.cfg.attention_impl
-        enc_out = self.encode(frames, impl)
+    def _dec_block(self, blk: Block, x, positions, enc_out, enc_positions,
+                   impl):
+        """One decoder block over the whole sequence: (x, (k, v, xk, xv))."""
+        B, S, _ = x.shape
+        q, k, v = self._qkv(blk.attn, self._ln(blk.ln1, x), positions)
+        o = L.attention(q, k, v, q_positions=positions,
+                        kv_positions=positions, causal=True, impl=impl)
+        x = x + L.attn_out(blk.attn, o)
+        h = self._ln(blk.ln_x, x)
+        qx = (h @ blk.xattn["wq"]).reshape(B, S, self.cfg.num_heads,
+                                           self.head_dim)
+        kx, vx = self._cross_kv(blk.xattn, enc_out)
+        ox = L.attention(qx, kx, vx, q_positions=positions,
+                         kv_positions=enc_positions, causal=False,
+                         impl=impl)
+        x = x + L.attn_out(blk.xattn, ox)
+        x = x + L.ffn_apply_nogate(blk.ffn, self._ln(blk.ln2, x))
+        return x, (k, v, kx, vx)
+
+    def _dec_block_x(self, *args):
+        return self._dec_block(*args)[0]
+
+    def _decoder_inputs(self, tokens, enc_out):
+        """(x, positions, enc_positions) of a whole-sequence decoder pass."""
         B, T_enc, _ = enc_out.shape
         S = tokens.shape[1]
         dev = tokens.device
@@ -172,25 +207,21 @@ class EncDecLM(nn.Module):
         positions = torch.arange(S, dtype=torch.int32,
                                  device=dev).expand(B, S).contiguous()
         x = self.embed[tokens] + self._positions_table(S)[None]
+        return x, positions, enc_positions
+
+    def _dec_prompt(self, tokens, frames, impl):
+        """Encode, then run the decoder over the whole prompt.  Returns
+        (last-position logits, per-layer (k, v, xk, xv), T_enc)."""
+        impl = impl or self.cfg.attention_impl
+        enc_out = self._encode(frames, impl)
+        x, positions, enc_positions = self._decoder_inputs(tokens, enc_out)
         kvs = []
         for blk in self.dec_blocks:
-            q, k, v = self._qkv(blk.attn, self._ln(blk.ln1, x), positions)
-            o = L.attention(q, k, v, q_positions=positions,
-                            kv_positions=positions, causal=True, impl=impl)
-            x = x + L.attn_out(blk.attn, o)
-            h = self._ln(blk.ln_x, x)
-            qx = (h @ blk.xattn["wq"]).reshape(B, S, self.cfg.num_heads,
-                                               self.head_dim)
-            kx, vx = self._cross_kv(blk.xattn, enc_out)
-            ox = L.attention(qx, kx, vx, q_positions=positions,
-                             kv_positions=enc_positions, causal=False,
-                             impl=impl)
-            x = x + L.attn_out(blk.xattn, ox)
-            x = x + L.ffn_apply_nogate(blk.ffn, self._ln(blk.ln2, x))
-            kvs.append((k, v, kx, vx))
+            x, kv = self._dec_block(blk, x, positions, enc_out,
+                                    enc_positions, impl)
+            kvs.append(kv)
         x = self._ln(self.dec_ln, x)
-        x = x if all_logits else x[:, -1]
-        return x @ self.embed.T, kvs, T_enc
+        return x[:, -1] @ self.embed.T, kvs, enc_out.shape[1]
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, frames: torch.Tensor,
@@ -198,15 +229,37 @@ class EncDecLM(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced decoder over the full sequence -> (logits
         (B,S,Vpad), aux 0)."""
-        logits, _, _ = self._dec_prompt(tokens, frames, impl, True)
-        return logits, torch.zeros((), device=tokens.device)
+        return self.forward_train(tokens, frames, impl=impl)
+
+    def forward_train(self, tokens: torch.Tensor, frames: torch.Tensor,
+                      remat: bool = False, impl: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The teacher-forced forward with its graph: (logits, aux 0)."""
+        impl = impl or self.cfg.attention_impl
+        enc_out = self._encode(frames, impl, remat)
+        x, positions, enc_positions = self._decoder_inputs(tokens, enc_out)
+        for blk in self.dec_blocks:
+            x = self._run(self._dec_block_x, remat, blk, x, positions,
+                          enc_out, enc_positions, impl)
+        x = self._ln(self.dec_ln, x)
+        return x @ self.embed.T, torch.zeros((), device=tokens.device)
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor], remat: bool = False,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """Next-token cross-entropy of ``batch["tokens"]`` (decoded over
+        ``batch["frames"]``) against ``batch["labels"]`` shifted by one
+        (``loss_mask`` shifted alike: the JAX function passes it
+        unshifted, which fails on its own shapes)."""
+        logits, _ = self.forward_train(batch["tokens"], batch["frames"],
+                                       remat=remat, impl=impl)
+        return L.next_token_loss(logits, batch, self.cfg.vocab_size)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, frames: torch.Tensor,
                 impl: Optional[str] = None) -> Tuple[torch.Tensor, Cache]:
         """Encode the frames, run the decoder prompt, build the caches.
         Returns (last logits (B,Vpad), cache)."""
-        logits, kvs, T_enc = self._dec_prompt(tokens, frames, impl, False)
+        logits, kvs, T_enc = self._dec_prompt(tokens, frames, impl)
         B, S = tokens.shape
         cache = {key: torch.stack([kv[i] for kv in kvs])
                  for i, key in enumerate(("k", "v", "xk", "xv"))}

@@ -16,7 +16,15 @@ there:
   flash prefill for a query block, flash-decode for one token).  A
   one-token query with ``causal=False`` (whisper's decode cross-attention)
   sees every valid key, as under ``attention_xla``: the JAX ``"pallas"``
-  path drops ``causal`` there (ROADMAP Queue 3).
+  path drops ``causal`` there (ROADMAP Queue 3).  The flash kernel and the
+  scan carry a backward (an autograd ``Function``); the decode kernels
+  serve only and raise if asked for a gradient;
+* ``cross_entropy`` over a padded vocabulary and ``next_token_loss``, the
+  training loss.
+
+Parameters are made with ``requires_grad=False``: the engines serve under
+``torch.no_grad()``, and the trainer turns grad on for the model it
+trains (``repro_torch.training``).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.common import NEG_INF
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -229,3 +238,36 @@ def ffn_apply(p, x):
 def ffn_apply_nogate(p, x):
     """Whisper's FFN: ``gelu(x @ w_up) @ w_down``."""
     return gelu(x @ p["w_up"]) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# cross-entropy with padded vocab
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int, mask=None) -> torch.Tensor:
+    """logits: (..., V_pad); labels int (...); mask optional (...).  The
+    mean token NLL in f32; the pad columns past ``vocab_size`` are masked
+    to NEG_INF by a ``where``, so they get no gradient."""
+    vpad = logits.shape[-1]
+    logits32 = logits.float()
+    if vpad > vocab_size:
+        real = torch.arange(vpad, device=logits.device) < vocab_size
+        logits32 = torch.where(real, logits32, NEG_INF)
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        denom = torch.clamp(mask.sum(), min=1)
+        return (nll * mask).sum() / denom
+    return nll.mean()
+
+
+def next_token_loss(logits: torch.Tensor, batch, vocab_size: int
+                    ) -> torch.Tensor:
+    """``cross_entropy`` of ``logits[:, :-1]`` against ``batch["labels"]``
+    shifted by one, under ``batch["loss_mask"]`` shifted alike when the
+    batch has one."""
+    mask = batch.get("loss_mask")
+    return cross_entropy(logits[:, :-1], batch["labels"][:, 1:], vocab_size,
+                         mask=None if mask is None else mask[:, 1:])

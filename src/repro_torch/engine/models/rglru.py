@@ -24,7 +24,10 @@ is layer ``3g + i``, then the leftovers); ``repro_torch.bridge`` splits
 the JAX group axis.  The cache keeps the JAX layout: ``g{i}_*`` leaves
 stacked ``(G, B, ...)`` over groups, ``l{j}_*`` leaves ``(B, ...)``, and
 ``length`` (B,).  ``decode_step`` updates the cache's tensors IN PLACE.
-Inference only: the parameters do not require grad.
+Serving runs under ``torch.no_grad()``; ``loss_fn`` trains through
+``forward_train`` (under ``impl="cuda"`` the flash and scan kernels with
+their backward), rematerializing each group of three blocks with
+``remat``, as the JAX package checkpoints its scanned groups.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.models import layers as L
@@ -248,13 +252,55 @@ class GriffinLM(nn.Module):
             states.append(st)
         return L.rms_norm(x, self.final_norm, self.cfg.norm_eps), states
 
+    def _layers_seq(self, layers, x, positions, impl):
+        """``layers`` (indices) over the whole sequence, keeping no state."""
+        for layer in layers:
+            blk = self.blocks[layer]
+            if isinstance(blk, RecurrentBlock):
+                x, _ = self._rblock_seq(blk, x, impl)
+            else:
+                x, _ = self._ablock_seq(blk, x, positions, impl)
+        return x
+
     # --------------------------------------------------------------- forward
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced forward.  Returns (logits (B,S,Vpad), aux)."""
-        x, _ = self._run_prompt(tokens, impl or self.cfg.attention_impl)
+        return self.forward_train(tokens, impl=impl)
+
+    def forward_train(self, tokens: torch.Tensor, remat: bool = False,
+                      impl: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The teacher-forced forward with its graph: (logits, aux 0).  With
+        ``remat`` each full group of blocks is rematerialized in the
+        backward; the leftover blocks are not, as in JAX."""
+        impl = impl or self.cfg.attention_impl
+        x = self.embed[tokens]
+        B, S, _ = x.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S).contiguous()
+        for g in range(self.n_groups):
+            layers = range(g * self.glen, (g + 1) * self.glen)
+            if remat:
+                x = checkpoint(self._layers_seq, layers, x, positions, impl,
+                               use_reentrant=False)
+            else:
+                x = self._layers_seq(layers, x, positions, impl)
+        x = self._layers_seq(range(self.n_groups * self.glen,
+                                   self.cfg.num_layers), x, positions, impl)
+        x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return x @ self.embed.T, torch.zeros((), device=tokens.device)
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor], remat: bool = False,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """Next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` shifted by one (``loss_mask`` shifted alike:
+        the JAX function passes it unshifted, which fails on its own
+        shapes)."""
+        logits, _ = self.forward_train(batch["tokens"], remat=remat,
+                                       impl=impl)
+        return L.next_token_loss(logits, batch, self.cfg.vocab_size)
 
     # ------------------------------------------------------------- KV / state
     def cache_capacity(self, max_len: int) -> int:

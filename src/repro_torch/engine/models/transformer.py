@@ -16,8 +16,10 @@ Weights are ``(in, out)`` as in the JAX package; the blocks are a
 ``ModuleList`` where the JAX package stacks them on a leading layer axis
 (``repro_torch.bridge`` splits that axis); the JAX package's unscanned
 ``lead_blocks`` are the list's first layers, as they are the first layers
-of its KV cache and page pool.  The module serves inference
-only: its parameters do not require grad.  Unlike the JAX functions,
+of its KV cache and page pool.  Serving runs under ``torch.no_grad()``
+(its parameters do not require grad unless a trainer turns it on);
+``loss_fn`` is the training loss over ``forward_train``, a forward that
+keeps the graph and holds no KV.  Unlike the JAX functions,
 ``prefill_with_cache``, ``paged_decode_step`` and ``decode_step`` write
 KV into the cache or pool they are given IN PLACE, which saves the
 whole-pool copy an immutable update would cost (about 1.9 GB at full
@@ -30,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.models import layers as L
@@ -141,17 +144,76 @@ class TransformerLM(nn.Module):
                           rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
                           norm_eps=cfg.norm_eps)
 
-    def _finish_block(self, blk: Block, x, o, aux=None):
-        """The attention output, then the FFN or the experts; ``aux``, a
-        list, collects each MoE layer's aux loss."""
+    def _finish_block(self, blk: Block, x, o):
+        """The attention output, then the FFN or the experts.  Returns (x,
+        the MoE layer's aux loss, or None for a dense FFN)."""
         x = x + L.attn_out(blk.attn, o)
         h = L.rms_norm(x, blk.ln2, self.cfg.norm_eps)
         if blk.moe is None:
-            return x + L.ffn_apply(blk.ffn, h)
+            return x + L.ffn_apply(blk.ffn, h), None
         y, a = M.moe_ffn(h, blk.moe, self.cfg.moe)
-        if aux is not None:
-            aux.append(a)
-        return x + y
+        return x + y, a
+
+    def _block(self, blk: Block, x, positions, impl):
+        """One block of the teacher-forced forward: (x, its aux loss, f32,
+        0 for a dense FFN).  It returns the aux loss rather than collecting
+        it, so a rematerialized block adds it once."""
+        q, k, v = self._qkv(blk, x, positions)
+        o = L.attention(q, k, v, q_positions=positions,
+                        kv_positions=positions, causal=True,
+                        window=self.cfg.swa_window, impl=impl)
+        x, a = self._finish_block(blk, x, o)
+        if a is None:
+            a = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, a
+
+    # -------------------------------------------------------------- training
+    def forward_train(self, tokens: torch.Tensor,
+                      prefix_embeds: Optional[torch.Tensor] = None,
+                      remat: bool = False, impl: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The teacher-forced forward with its graph, for training: (logits
+        (B,P+S,Vpad), the aux losses summed in layer order, f32).  With
+        ``remat`` each block past the MoE lead layers is rematerialized in
+        the backward (``checkpoint``, as the JAX package's
+        ``jax.checkpoint`` over its scanned blocks); the lead blocks are
+        not, as in JAX."""
+        cfg = self.cfg
+        impl = impl or cfg.attention_impl
+        x = self.embed[tokens]
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        B, S, _ = x.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S).contiguous()
+        n_lead = cfg.moe.first_dense_layers if cfg.moe else 0
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, blk in enumerate(self.blocks):
+            if remat and i >= n_lead:
+                x, a = checkpoint(self._block, blk, x, positions, impl,
+                                  use_reentrant=False)
+            else:
+                x, a = self._block(blk, x, positions, impl)
+            aux = aux + a
+        x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
+        return x @ self._head(), aux
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor], remat: bool = False,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """Next-token cross-entropy over ``batch["tokens"]`` against
+        ``batch["labels"]`` shifted by one, past the patch positions of a
+        VLM batch (``patch_embeds``), under ``loss_mask`` when given, plus
+        ``router_aux_weight`` times the MoE aux loss."""
+        cfg = self.cfg
+        patches = batch.get("patch_embeds")
+        logits, aux = self.forward_train(batch["tokens"],
+                                         prefix_embeds=patches, remat=remat,
+                                         impl=impl)
+        if patches is not None:
+            logits = logits[:, patches.shape[1]:]
+        ce = L.next_token_loss(logits, batch, cfg.vocab_size)
+        weight = cfg.moe.router_aux_weight if cfg.moe else 0.0
+        return ce + weight * aux
 
     # --------------------------------------------------------------- forward
     @torch.no_grad()
@@ -161,10 +223,8 @@ class TransformerLM(nn.Module):
         """Teacher-forced forward.  Returns (logits (B,P+S,Vpad), aux): the
         MoE layers' aux losses summed in layer order, float32 (0 for a
         dense model)."""
-        aux = []
-        logits, _ = self._run_prompt(tokens, impl, all_logits=True, aux=aux,
-                                     prefix_embeds=prefix_embeds)
-        return logits, sum(aux, torch.zeros((), device=tokens.device))
+        return self.forward_train(tokens, prefix_embeds=prefix_embeds,
+                                  impl=impl)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, impl: Optional[str] = None,
@@ -173,11 +233,6 @@ class TransformerLM(nn.Module):
         """Run the full prompt, after ``prefix_embeds`` when given; return
         (last-position logits, filled cache ``{"k", "v": (L,B,P+S,Hkv,Dh),
         "length": (B,) int32}``)."""
-        return self._run_prompt(tokens, impl, all_logits=False,
-                                prefix_embeds=prefix_embeds)
-
-    def _run_prompt(self, tokens, impl, all_logits, aux=None,
-                    prefix_embeds=None):
         cfg = self.cfg
         impl = impl or cfg.attention_impl
         x = self.embed[tokens]
@@ -192,12 +247,10 @@ class TransformerLM(nn.Module):
             o = L.attention(q, k, v, q_positions=positions,
                             kv_positions=positions, causal=True,
                             window=cfg.swa_window, impl=impl)
-            x = self._finish_block(blk, x, o, aux)
+            x, _ = self._finish_block(blk, x, o)
             ks.append(k)
             vs.append(v)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
-        if all_logits:
-            return x @ self._head(), None
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
                  "length": torch.full((B,), S, dtype=torch.int32,
                                       device=x.device)}
@@ -242,7 +295,7 @@ class TransformerLM(nn.Module):
             o = L.attention(q, k_cache, v_cache, q_positions=positions,
                             kv_positions=kv_pos, causal=True, window=0,
                             impl=impl)
-            x = self._finish_block(blk, x, o)
+            x, _ = self._finish_block(blk, x, o)
         new_cache = dict(cache)
         new_cache["length"] = pos0 + (Ssuf if valid_len is None
                                       else valid_len.to(torch.int32))
@@ -285,7 +338,7 @@ class TransformerLM(nn.Module):
             o = L.attention(q, k_cache, v_cache, q_positions=pos[:, None],
                             kv_positions=kv_pos, causal=True,
                             window=cfg.swa_window, impl=impl)
-            x = self._finish_block(blk, x, o)
+            x, _ = self._finish_block(blk, x, o)
         new_cache = dict(cache)
         new_cache["length"] = pos + 1
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -371,7 +424,7 @@ class TransformerLM(nn.Module):
                     o = L.attention(q, kd, vd, q_positions=posc[:, None],
                                     kv_positions=kv_pos, causal=True,
                                     window=cfg.swa_window, impl="torch")
-            x = self._finish_block(blk, x, o)
+            x, _ = self._finish_block(blk, x, o)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
         return x[:, -1] @ self._head(), k_pages, v_pages
 

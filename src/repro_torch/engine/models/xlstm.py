@@ -25,7 +25,11 @@ tensors IN PLACE and returns a new dict (the caller's dict is not
 changed).  The sequence form of the conv sums shifted elementwise
 products in the input's dtype, in the JAX package's order, rather than
 calling ``F.conv1d``: cuDNN would run an f32 convolution in TF32 and sum
-in another order.
+in another order.  The sequence loops collect each step's output and stack
+them (no slice writes into a preallocated buffer), so autograd runs
+through them unchanged; ``loss_fn`` trains through ``forward_train``,
+rematerializing each pair with ``remat`` as the JAX package checkpoints
+its scanned pairs.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.models import layers as L
@@ -103,11 +108,12 @@ def mlstm_sequence(q, k, v, i_pre, f_pre, state):
     q32, k32, v32 = q.float(), k.float(), v.float()
     i32 = i_pre.float()
     log_f = F.logsigmoid(f_pre.float())                    # all steps at once
-    hs = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    hs = []
     for t in range(q.shape[1]):
-        state, hs[:, t] = _mlstm_update(state, q32[:, t], k32[:, t],
-                                        v32[:, t], i32[:, t], log_f[:, t])
-    return state, hs
+        state, h = _mlstm_update(state, q32[:, t], k32[:, t], v32[:, t],
+                                 i32[:, t], log_f[:, t])
+        hs.append(h)
+    return state, torch.stack(hs, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -163,12 +169,11 @@ def slstm_sequence(x_gates, r_w, state):
     (B,S,D) f32)."""
     pre = _gate_major(x_gates).permute(2, 0, 1, 3).contiguous()  # (S,4,B,D)
     r_cat = _recurrent_matrix(r_w)
-    B, S = x_gates.shape[:2]
-    hs = torch.empty(B, S, pre.shape[-1], dtype=torch.float32,
-                     device=x_gates.device)
-    for t in range(S):
-        state, hs[:, t] = _slstm_update(state, pre[t], r_cat)
-    return state, hs
+    hs = []
+    for t in range(x_gates.shape[1]):
+        state, h = _slstm_update(state, pre[t], r_cat)
+        hs.append(h)
+    return state, torch.stack(hs, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -349,14 +354,42 @@ class XLSTMLM(nn.Module):
             states.append(st)
         return L.rms_norm(x, self.final_norm, self.cfg.norm_eps), states
 
+    def _pair_x(self, pair: Pair, x, st):
+        return self._pair_seq(pair, x, st)[0]
+
     # --------------------------------------------------------------- forward
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor, impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced forward.  Returns (logits (B,S,Vpad), aux 0).
         ``impl`` is accepted for the engine's interface: no attention."""
-        x, _ = self._run_prompt(tokens)
+        return self.forward_train(tokens)
+
+    def forward_train(self, tokens: torch.Tensor, remat: bool = False,
+                      impl: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The teacher-forced forward with its graph, every pair from the
+        zero state: (logits, aux 0); ``remat`` rematerializes each pair in
+        the backward."""
+        x = self.embed[tokens]
+        zero = self._zero_state(x.shape[0])
+        for pair in self.pairs:
+            if remat:
+                x = checkpoint(self._pair_x, pair, x, zero,
+                               use_reentrant=False)
+            else:
+                x = self._pair_x(pair, x, zero)
+        x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return x @ self.embed.T, torch.zeros((), device=tokens.device)
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor], remat: bool = False,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """Next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` shifted by one (``loss_mask`` shifted alike:
+        the JAX function passes it unshifted, which fails on its own
+        shapes)."""
+        logits, _ = self.forward_train(batch["tokens"], remat=remat)
+        return L.next_token_loss(logits, batch, self.cfg.vocab_size)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, impl: Optional[str] = None

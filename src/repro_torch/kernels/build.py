@@ -116,8 +116,10 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.flash_attention_fwd.argtypes = [p] * 6 + [i] * 10 + [p]
+            lib.flash_attention_fwd.argtypes = [p] * 7 + [i] * 10 + [p]
             lib.flash_attention_fwd.restype = i
+            lib.flash_attention_bwd.argtypes = [p] * 11 + [i] * 10 + [p]
+            lib.flash_attention_bwd.restype = i
             lib.paged_decode_attention_fwd.argtypes = \
                 [p] * 11 + [i] * 11 + [p]
             lib.paged_decode_attention_fwd.restype = i

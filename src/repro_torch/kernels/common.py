@@ -11,7 +11,8 @@ and a zero output row, so a log-sum-exp combine treats it as empty.
 
 ``sm_count`` is the card's SM count, which the split kernels' wrappers
 plan their grids by, read once per device; ``launch_on`` hands a launch
-the device's current stream.
+the device's current stream; ``refuse_grad`` keeps a kernel without a
+backward from dropping a gradient.
 """
 from __future__ import annotations
 
@@ -79,3 +80,16 @@ def launch_on(device: torch.device, launch):
         return launch(stream)
     with torch.cuda.device(device):
         return launch(stream)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if grad is enabled and an input requires it.  A kernel
+    without a backward writes into a fresh buffer through ``ctypes``, so
+    its output has no ``grad_fn``: autograd would drop the gradient of
+    every input silently.  The decode-side kernels serve only, under
+    ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward, and an "
+                           f"input requires grad; call it under "
+                           f"torch.no_grad()")

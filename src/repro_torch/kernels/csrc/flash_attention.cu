@@ -79,8 +79,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ q_pos,
                        const int* __restrict__ kv_pos, T* __restrict__ out,
-                       int Sq, int Skv, int H, int Hkv, int causal,
-                       int window, float scale) {
+                       float* __restrict__ lse, int Sq, int Skv, int H,
+                       int Hkv, int causal, int window, float scale) {
   constexpr int DPL = (DH + 31) / 32;       // output columns per lane
   constexpr int KS = DH + 1;                // padded K row stride
   extern __shared__ float smem[];
@@ -178,6 +178,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int qi = q0 + warp * kRowsPerWarp + r;
     if (qi >= Sq) continue;
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)b * H + h) * Sq + qi] =
+          m[r] == REPRO_NEG_INF ? REPRO_NEG_INF : m[r] + logf(l[r]);
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       const int d = lane + 32 * c;
@@ -191,9 +194,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* out, int B,
-                   int Sq, int Skv, int H, int Hkv, int causal, int window,
-                   cudaStream_t stream) {
+                   const int* q_pos, const int* kv_pos, void* out,
+                   float* lse, int B, int Sq, int Skv, int H, int Hkv,
+                   int causal, int window, cudaStream_t stream) {
   auto kern = flash_attention_kernel<T, DH>;
   constexpr size_t smem = smem_bytes<DH>();
   if (smem > 48 * 1024) {
@@ -204,8 +207,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), Sq, Skv,
-      H, Hkv, causal, window, 1.0f / sqrtf((float)DH));
+      static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), lse, Sq,
+      Skv, H, Hkv, causal, window, 1.0f / sqrtf((float)DH));
   return cudaGetLastError();
 }
 
@@ -221,6 +224,7 @@ constexpr int kThreads = kGroups * kGroupThreads;
 constexpr int kBlockM = 64;                 // query rows per block
 constexpr int kMaxSmem = 232448;            // bytes a block may use
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // keys per KV tile
 template <int DH>
@@ -255,8 +259,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const int* __restrict__ q_pos,
                 const int* __restrict__ kv_pos, bf16* __restrict__ out,
-                int Sq, int Skv, int H, int Hkv, int causal, int window,
-                float scale_log2) {
+                float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
+                int causal, int window, float scale_log2) {
   constexpr int BN = block_n<DH>();
   constexpr int CH = DH / 8;                // 16-byte chunks in a row
   constexpr int NB = BN / 8;                // 8-key column blocks of S
@@ -553,6 +557,11 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (!in_rows[hr]) continue;
     const int qi = q0 + warp * 16 + g + 8 * hr;
     const float inv = l[hr] > 0.0f ? 1.0f / l[hr] : 0.0f;
+    // m is in log2 units of the scaled logits
+    if (lse != nullptr && t4 == 0)
+      lse[((size_t)b * H + h) * Sq + qi] =
+          m[hr] == REPRO_NEG_INF ? REPRO_NEG_INF
+                                 : (m[hr] + log2f(l[hr])) * kLn2;
     bf16* dst = out + (((size_t)b * Sq + qi) * H + h) * DH + 2 * t4;
 #pragma unroll
     for (int db = 0; db < DB; ++db)
@@ -563,9 +572,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* out, int B,
-                   int Sq, int Skv, int H, int Hkv, int causal, int window,
-                   cudaStream_t stream) {
+                   const int* q_pos, const int* kv_pos, void* out,
+                   float* lse, int B, int Sq, int Skv, int H, int Hkv,
+                   int causal, int window, cudaStream_t stream) {
   auto kern = flash_tc_kernel<DH>;
   const int n_tiles = (Skv + block_n<DH>() - 1) / block_n<DH>();
   const size_t smem = smem_bytes<DH>(n_tiles);
@@ -579,7 +588,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), q_pos, kv_pos, static_cast<bf16*>(out),
-      Sq, Skv, H, Hkv, causal, window, kLog2e / sqrtf((float)DH));
+      lse, Sq, Skv, H, Hkv, causal, window, kLog2e / sqrtf((float)DH));
   return cudaGetLastError();
 }
 
@@ -589,19 +598,19 @@ namespace {
 
 template <typename T>
 cudaError_t simt_dh(const void* q, const void* k, const void* v,
-                    const int* q_pos, const int* kv_pos, void* out, int B,
-                    int Sq, int Skv, int H, int Hkv, int Dh, int causal,
-                    int window, cudaStream_t s) {
+                    const int* q_pos, const int* kv_pos, void* out,
+                    float* lse, int B, int Sq, int Skv, int H, int Hkv,
+                    int Dh, int causal, int window, cudaStream_t s) {
   switch (Dh) {
     case 8:
-      return simt::launch<T, 8>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H,
-                                Hkv, causal, window, s);
+      return simt::launch<T, 8>(q, k, v, q_pos, kv_pos, out, lse, B, Sq,
+                                Skv, H, Hkv, causal, window, s);
     case 16:
-      return simt::launch<T, 16>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H,
-                                 Hkv, causal, window, s);
+      return simt::launch<T, 16>(q, k, v, q_pos, kv_pos, out, lse, B, Sq,
+                                 Skv, H, Hkv, causal, window, s);
     case 32:
-      return simt::launch<T, 32>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H,
-                                 Hkv, causal, window, s);
+      return simt::launch<T, 32>(q, k, v, q_pos, kv_pos, out, lse, B, Sq,
+                                 Skv, H, Hkv, causal, window, s);
     default:
       break;
   }
@@ -609,14 +618,14 @@ cudaError_t simt_dh(const void* q, const void* k, const void* v,
   if constexpr (std::is_same<T, float>::value) {
     switch (Dh) {
       case 64:
-        return simt::launch<T, 64>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv,
-                                   H, Hkv, causal, window, s);
+        return simt::launch<T, 64>(q, k, v, q_pos, kv_pos, out, lse, B, Sq,
+                                   Skv, H, Hkv, causal, window, s);
       case 128:
-        return simt::launch<T, 128>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv,
-                                    H, Hkv, causal, window, s);
+        return simt::launch<T, 128>(q, k, v, q_pos, kv_pos, out, lse, B, Sq,
+                                    Skv, H, Hkv, causal, window, s);
       case 256:
-        return simt::launch<T, 256>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv,
-                                    H, Hkv, causal, window, s);
+        return simt::launch<T, 256>(q, k, v, q_pos, kv_pos, out, lse, B, Sq,
+                                    Skv, H, Hkv, causal, window, s);
       default:
         break;
     }
@@ -625,19 +634,19 @@ cudaError_t simt_dh(const void* q, const void* k, const void* v,
 }
 
 cudaError_t tc_dh(const void* q, const void* k, const void* v,
-                  const int* q_pos, const int* kv_pos, void* out, int B,
-                  int Sq, int Skv, int H, int Hkv, int Dh, int causal,
-                  int window, cudaStream_t s) {
+                  const int* q_pos, const int* kv_pos, void* out,
+                  float* lse, int B, int Sq, int Skv, int H, int Hkv,
+                  int Dh, int causal, int window, cudaStream_t s) {
   switch (Dh) {
     case 64:
-      return tc::launch<64>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv,
-                            causal, window, s);
+      return tc::launch<64>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, H,
+                            Hkv, causal, window, s);
     case 128:
-      return tc::launch<128>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H,
-                             Hkv, causal, window, s);
+      return tc::launch<128>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv,
+                             H, Hkv, causal, window, s);
     case 256:
-      return tc::launch<256>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H,
-                             Hkv, causal, window, s);
+      return tc::launch<256>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv,
+                             H, Hkv, causal, window, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -648,27 +657,29 @@ cudaError_t tc_dh(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 // tensor_cores: 1 = the mma.sync body (bfloat16 with Dh 64, 128 or 256 and
 // q, k, v 16-byte aligned), 0 = the CUDA-core body (float32 at Dh 8..256,
-// bfloat16 at Dh 8, 16, 32).  Returns the cudaError_t of the launch
+// bfloat16 at Dh 8, 16, 32).  lse: null, or (B,H,Sq) float32 that takes
+// each row's log-sum-exp.  Returns the cudaError_t of the launch
 // (0 = success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const int* q_pos,
-                                   const int* kv_pos, void* out, int B, int Sq,
-                                   int Skv, int H, int Hkv, int Dh, int causal,
-                                   int window, int dtype, int tensor_cores,
-                                   void* stream) {
+                                   const int* kv_pos, void* out, float* lse,
+                                   int B, int Sq, int Skv, int H, int Hkv,
+                                   int Dh, int causal, int window, int dtype,
+                                   int tensor_cores, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_cores) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    return (int)tc_dh(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, Dh,
-                      causal, window, s);
+    return (int)tc_dh(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, H, Hkv,
+                      Dh, causal, window, s);
   }
   if (dtype == 0)
-    return (int)simt_dh<float>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H,
-                               Hkv, Dh, causal, window, s);
+    return (int)simt_dh<float>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv,
+                               H, Hkv, Dh, causal, window, s);
   if (dtype == 1)
-    return (int)simt_dh<__nv_bfloat16>(q, k, v, q_pos, kv_pos, out, B, Sq,
-                                       Skv, H, Hkv, Dh, causal, window, s);
+    return (int)simt_dh<__nv_bfloat16>(q, k, v, q_pos, kv_pos, out, lse, B,
+                                       Sq, Skv, H, Hkv, Dh, causal, window,
+                                       s);
   return (int)cudaErrorInvalidValue;
 }

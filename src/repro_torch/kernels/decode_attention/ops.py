@@ -17,7 +17,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import launch_on, sm_count
+from repro_torch.kernels.common import launch_on, refuse_grad, sm_count
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (32, 64, 128, 256)
@@ -97,6 +97,7 @@ def _launch(q, k, v, q_positions, kv_positions, window):
     """Launch on q (B,H,Dh) or (B,1,H,Dh), whose memory is the same, and
     q_positions (B,) or (B,1).  Returns out at q's shape, the f32 buffer
     that holds m and l after ``n_part`` partial values, and ``n_part``."""
+    refuse_grad("decode_attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, H, Dh = q.shape[0], q.shape[-2], q.shape[-1]

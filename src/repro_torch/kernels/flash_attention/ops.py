@@ -10,6 +10,17 @@ The kernel has two bodies and the wrapper picks one by the rule in
 cores (``tensor_core_launches``); float32, whose tensor-core product would
 be TF32, and the small Dh of the sweeps run on the CUDA cores
 (``cuda_core_launches``).  ``launches`` counts both.
+
+Training: when grad is enabled and q, k or v requires grad, the call goes
+through ``FlashAttention``, an autograd ``Function``.  On the card its
+forward is the same kernel, which then also writes each row's
+log-sum-exp, and its backward is ``csrc/flash_attention_bwd.cu`` at Dh
+64, 128 and 256, with two bodies by ``bwd_uses_tensor_cores``: bfloat16
+at Dh 64 and 128 on the tensor cores (``bwd_tensor_core_launches``),
+float32 and Dh 256 on the CUDA cores (``bwd_cuda_core_launches``);
+``bwd_launches`` counts both.  On the CPU forward and backward are the
+plain versions in ``ref.py``.  Without grad the call is the direct
+launch the serving path makes, with no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -19,17 +30,26 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import launch_on
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                    flash_attention_lse_ref,
+                                                    flash_attention_ref)
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128, 256)
+BWD_TENSOR_CORE_HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GRID = 65535                # the backward grid's batch and head axes
 
 # kernel launches since the last reset (CPU calls are not counted): all of
-# them, and those of each body
+# them, and those of each body; the backward's likewise, a launch being
+# one call (three kernels: D, dK/dV, dQ)
 launches = 0
 tensor_core_launches = 0
 cuda_core_launches = 0
+bwd_launches = 0
+bwd_tensor_core_launches = 0
+bwd_cuda_core_launches = 0
 # the engines' loop threads launch concurrently: every update of the
 # counts holds the lock, so none is lost
 _count_lock = threading.Lock()
@@ -37,8 +57,20 @@ _count_lock = threading.Lock()
 
 def reset_counts() -> None:
     global launches, tensor_core_launches, cuda_core_launches
+    global bwd_launches, bwd_tensor_core_launches, bwd_cuda_core_launches
     with _count_lock:
         launches = tensor_core_launches = cuda_core_launches = 0
+        bwd_launches = bwd_tensor_core_launches = bwd_cuda_core_launches = 0
+
+
+def _count_bwd(tensor_cores: bool) -> None:
+    global bwd_launches, bwd_tensor_core_launches, bwd_cuda_core_launches
+    with _count_lock:
+        bwd_launches += 1
+        if tensor_cores:
+            bwd_tensor_core_launches += 1
+        else:
+            bwd_cuda_core_launches += 1
 
 
 def _count(tensor_cores: bool) -> None:
@@ -55,6 +87,11 @@ def _count(tensor_cores: bool) -> None:
 def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
     """Whether a launch takes the tensor-core (mma.sync) body."""
     return dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS
+
+
+def bwd_uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a backward launch takes the tensor-core (mma.sync) body."""
+    return dtype == torch.bfloat16 and head_dim in BWD_TENSOR_CORE_HEAD_DIMS
 
 
 def _check(q, k, v, q_positions, kv_positions):
@@ -79,23 +116,15 @@ def _check(q, k, v, q_positions, kv_positions):
     tensors = (q, k, v, q_positions, kv_positions)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("flash_attention: inputs on different devices")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention: inputs must be contiguous")
 
 
-def flash_attention(q, k, v, *, q_positions, kv_positions, causal=True,
-                    window=0):
-    """q: (B,Sq,H,Dh); k,v: (B,Skv,Hkv,Dh); positions int32 (-1 invalid).
-
-    Returns attention output (B,Sq,H,Dh) in q's dtype.
-    """
-    _check(q, k, v, q_positions, kv_positions)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, q_positions=q_positions,
-                                   kv_positions=kv_positions, causal=causal,
-                                   window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def _launch(q, k, v, q_positions, kv_positions, causal, window, lse=None):
+    """The forward kernel on q's device; ``lse``, when given, a (B,H,Sq)
+    float32 buffer for each row's log-sum-exp."""
     B, Sq, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if Dh not in HEAD_DIMS:
@@ -108,8 +137,126 @@ def flash_attention(q, k, v, *, q_positions, kv_positions, causal=True,
     out = torch.empty_like(q)
     err = launch_on(q.device, lambda stream: lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-        kv_positions.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, Dh,
+        kv_positions.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Skv, H, Hkv, Dh,
         int(causal), int(window), DTYPES[q.dtype], int(tc), stream))
     build.check(err, "flash_attention_fwd")
     _count(tc)
     return out
+
+
+def _check_bwd_shape(q, k):
+    B, _, H, Dh = q.shape
+    if Dh not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention backward: head_dim {Dh} not in "
+                         f"{BWD_HEAD_DIMS}")
+    if B > MAX_GRID or H > MAX_GRID:
+        raise ValueError(f"flash_attention backward: batch {B} or heads {H} "
+                         f"exceed {MAX_GRID}")
+
+
+def flash_attention_bwd(q, k, v, dout, lse, *, q_positions, kv_positions,
+                        causal=True, window=0):
+    """The gradient of ``flash_attention`` for the output gradient
+    ``dout``: (dq, dk, dv) in the dtypes of q, k, v.  ``lse`` (B,H,Sq)
+    float32 is the forward's row log-sum-exp.  For CUDA tensors it launches
+    ``csrc/flash_attention_bwd.cu``; for CPU tensors it runs
+    ``flash_attention_bwd_ref`` (which recomputes P and needs no
+    ``lse``)."""
+    _check(q, k, v, q_positions, kv_positions)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, dout, q_positions=q_positions,
+                                       kv_positions=kv_positions,
+                                       causal=causal, window=window)
+    _check_bwd_shape(q, k)
+    B, Sq, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    for name, t, shape in (("dout", dout, q.shape), ("lse", lse, (B, H, Sq))):
+        if tuple(t.shape) != tuple(shape) or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} must be a "
+                             f"contiguous {tuple(shape)} on {q.device}")
+    if dout.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError("flash_attention backward: dout in q's dtype, lse "
+                        "float32")
+    tc = bwd_uses_tensor_cores(q.dtype, Dh)
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("flash_attention backward: bf16 q, k, v, dout must "
+                         "be 16-byte aligned")
+    lib = build.library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = launch_on(q.device, lambda stream: lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), q_positions.data_ptr(), kv_positions.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, Sq,
+        Skv, H, Hkv, Dh, int(causal), int(window), DTYPES[q.dtype], int(tc),
+        stream))
+    build.check(err, "flash_attention_bwd")
+    _count_bwd(tc)
+    return dq, dk, dv
+
+
+def flash_attention_lse(q, k, v, *, q_positions, kv_positions, causal=True,
+                        window=0):
+    """The forward with each row's log-sum-exp: (out, lse (B,H,Sq) f32,
+    NEG_INF for a row with no valid key).  For CUDA tensors one launch of
+    the forward kernel; for CPU tensors the plain versions."""
+    _check(q, k, v, q_positions, kv_positions)
+    kw = dict(q_positions=q_positions, kv_positions=kv_positions,
+              causal=causal, window=window)
+    if q.device.type == "cpu":
+        return (flash_attention_ref(q, k, v, **kw),
+                flash_attention_lse_ref(q, k, **kw))
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                      dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, q_positions, kv_positions, causal, window,
+                   lse), lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the kernels on the card, the
+    plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, causal, window):
+        kw = dict(q_positions=q_positions, kv_positions=kv_positions,
+                  causal=causal, window=window)
+        lse = None
+        if q.device.type == "cpu":
+            out = flash_attention_ref(q, k, v, **kw)
+        else:
+            # raise before the forward, not in the backward
+            _check_bwd_shape(q, k)
+            out, lse = flash_attention_lse(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, lse, q_positions, kv_positions)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse, q_positions, kv_positions = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, dout.contiguous(), lse, q_positions=q_positions,
+            kv_positions=kv_positions, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, q_positions, kv_positions, causal=True,
+                    window=0):
+    """q: (B,Sq,H,Dh); k,v: (B,Skv,Hkv,Dh); positions int32 (-1 invalid).
+
+    Returns attention output (B,Sq,H,Dh) in q's dtype; differentiable in
+    q, k and v (``FlashAttention``) when grad is enabled and one of them
+    requires it.
+    """
+    _check(q, k, v, q_positions, kv_positions)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_positions, kv_positions,
+                                    bool(causal), int(window))
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, q_positions=q_positions,
+                                   kv_positions=kv_positions, causal=causal,
+                                   window=window)
+    return _launch(q, k, v, q_positions, kv_positions, causal, window)

@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import launch_on
+from repro_torch.kernels.common import launch_on, refuse_grad
 from repro_torch.kernels.paged_decode_attention.ref import (
     fused_paged_decode_attention_ref, paged_decode_attention_ref)
 
@@ -154,6 +154,7 @@ def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, ppb,
     """Launch ``variant`` on q (B,H,Dh) or (B,1,H,Dh), whose memory is
     the same.  Returns out at q's shape, the f32 buffer that holds m and
     l after ``n_part`` partial values, and ``n_part``."""
+    refuse_grad("paged_decode_attention", q, k_pages, v_pages, k_new, v_new)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")

@@ -4,6 +4,13 @@ For CUDA tensors it launches ``csrc/rglru_scan.cu`` on the current stream
 and counts the launch in ``launches``; for CPU tensors it runs the plain
 version in ``ref.py``.  There is no fallback: a CUDA call the kernel
 cannot take raises.
+
+Training: when grad is enabled and a or b requires grad, the call goes
+through ``LinearScan``, an autograd ``Function``.  Its backward is the same
+recurrence backwards in time (``ref.linear_scan_bwd_ref``): on the card the
+forward kernel runs over the time-reversed ``(a shifted by one, dh)``,
+counted in ``bwd_launches``, and the reversal, the shift and ``da = g *
+h_{t-1}`` are elementwise torch ops; on the CPU it is the plain version.
 """
 from __future__ import annotations
 
@@ -13,33 +20,39 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import launch_on
-from repro_torch.kernels.rglru_scan.ref import linear_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (linear_scan_bwd_ref,
+                                               linear_scan_ref,
+                                               scan_bwd_inputs,
+                                               scan_bwd_outputs)
 
 MAX_BATCH = 65535               # the grid's second dimension
 
-# kernel launches since the last reset (CPU calls are not counted)
+# kernel launches since the last reset (CPU calls are not counted): the
+# forward's, and the backward's (one reversed scan each)
 launches = 0
+bwd_launches = 0
 # the engines' loop threads launch concurrently: every update of the
 # counts holds the lock, so none is lost
 _count_lock = threading.Lock()
 
 
 def reset_counts() -> None:
-    global launches
+    global launches, bwd_launches
     with _count_lock:
-        launches = 0
+        launches = bwd_launches = 0
 
 
-def _count() -> None:
+def _count(backward: bool = False) -> None:
     """Count one launch."""
-    global launches
+    global launches, bwd_launches
     with _count_lock:
-        launches += 1
+        if backward:
+            bwd_launches += 1
+        else:
+            launches += 1
 
 
-def linear_scan(a, b):
-    """a, b: (B,S,D) float32 -> h (B,S,D) float32 of h_t = a_t * h_{t-1}
-    + b_t from a zero state."""
+def _check(a, b):
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"linear_scan: a and b must be (B,S,D) alike; got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")
@@ -48,10 +61,12 @@ def linear_scan(a, b):
                         f"{a.dtype}, {b.dtype}")
     if a.device != b.device:
         raise ValueError("linear_scan: inputs on different devices")
-    if a.device.type == "cpu":
-        return linear_scan_ref(a, b)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"linear_scan: unsupported device {a.device}")
+
+
+def _launch(a, b, backward=False):
+    """The kernel over contiguous CUDA (B,S,D) float32 a, b."""
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("linear_scan: inputs must be contiguous")
     B, S, D = a.shape
@@ -62,5 +77,46 @@ def linear_scan(a, b):
     err = launch_on(a.device, lambda stream: lib.linear_scan_fwd(
         a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D, stream))
     build.check(err, "linear_scan_fwd")
-    _count()
+    _count(backward)
     return h
+
+
+def linear_scan_bwd(a, h, dh):
+    """The gradient of ``h = linear_scan(a, b)`` for ``dh``: (da, db).  For
+    CUDA tensors the reversed recurrence runs in the kernel; for CPU
+    tensors ``linear_scan_bwd_ref``."""
+    _check(a, dh)
+    if a.device.type == "cpu":
+        return linear_scan_bwd_ref(a, h, dh)
+    a_rev, dh_rev = scan_bwd_inputs(a, dh)
+    g_rev = _launch(a_rev.contiguous(), dh_rev.contiguous(), backward=True)
+    return scan_bwd_outputs(g_rev, h)
+
+
+class LinearScan(torch.autograd.Function):
+    """The scan with its gradient: the kernel on the card, the plain
+    versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = linear_scan_ref(a, b) if a.device.type == "cpu" \
+            else _launch(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        return linear_scan_bwd(a, h, dh.contiguous())
+
+
+def linear_scan(a, b):
+    """a, b: (B,S,D) float32 -> h (B,S,D) float32 of h_t = a_t * h_{t-1}
+    + b_t from a zero state; differentiable (``LinearScan``) when grad is
+    enabled and a or b requires it."""
+    _check(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return LinearScan.apply(a, b)
+    if a.device.type == "cpu":
+        return linear_scan_ref(a, b)
+    return _launch(a, b)

@@ -25,7 +25,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import launch_on, sm_count
+from repro_torch.kernels.common import launch_on, refuse_grad, sm_count
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.shared_prefix_attention.ref import (
     merge_prefix_suffix, prefix_attention_ref)
@@ -143,6 +143,8 @@ def _launch(q, prefix_k, prefix_v, prefix_positions, suffix=None):
     0..P-1.  Without ``suffix`` returns the partial ``(acc, m, l)``; with
     the suffix pass's ``(out_s, m_s, l_s)`` returns the op's output in q's
     dtype, merged in the kernel."""
+    refuse_grad("prefix_attention", q, prefix_k, prefix_v,
+                *(suffix or ()))
     if q.device.type != "cuda":
         raise ValueError(f"prefix_attention: unsupported device {q.device}")
     B, H, Dh = q.shape

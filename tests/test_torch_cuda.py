@@ -8,7 +8,11 @@ order than the plain versions), bf16 3e-2 (the plain flash version
 rounds probs to bf16 before PV, the kernel keeps them in f32), and
 bitwise where the JAX suite pins it (single == blocked, fused ==
 scatter-then-attend) or the kernel rounds exactly as its plain version
-(the RG-LRU scan: a multiply, then an add, per step).
+(the RG-LRU scan: a multiply, then an add, per step, and so its
+backward, the same scan reversed).  The flash backward (bf16 at Dh 64
+and 128 on the tensor cores, the rest on the CUDA cores): in f32 within
+1e-4 of each gradient's scale; in bf16 every element within 2e-3 +
+8e-3 |ref| and the RMS error within 5% of the reference's RMS.
 """
 import numpy as np
 import pytest
@@ -21,13 +25,14 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, lse_combine)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    flash_attention_ref)
+    flash_attention_bwd_ref, flash_attention_ref)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     ops as pd_ops)
 from repro_torch.kernels.paged_decode_attention.ref import (  # noqa: E402
     paged_decode_attention_ref, scatter_append_ref)
 from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
-from repro_torch.kernels.rglru_scan.ref import linear_scan_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
+    linear_scan_bwd_ref, linear_scan_ref)
 from repro_torch.kernels.shared_prefix_attention import (  # noqa: E402
     ops as sp_ops)
 from repro_torch.kernels.shared_prefix_attention.ref import (  # noqa: E402
@@ -671,3 +676,112 @@ def test_prefix_kernel_refuses_what_it_cannot_take(dev):
     q, pk, pv, *_ = _prefix_case(dev, 3, 34, 2, 64, 40, 4, torch.float32)
     with pytest.raises(ValueError, match="query heads"):
         sp_ops.prefix_attention(q, pk, pv, pos)
+
+
+# ---------------------------------------------------- the backward kernels
+
+def _bwd_close(got, ref, dtype):
+    g, r = got.float(), ref.float()
+    if dtype == torch.float32:
+        scale = max(float(r.abs().max()), 1e-6)
+        assert float((g - r).abs().max()) <= 1e-4 * scale
+        return
+    assert bool(((g - r).abs() <= 2e-3 + 8e-3 * r.abs()).all()), \
+        float(((g - r).abs() / (2e-3 + 8e-3 * r.abs())).max())
+    rms = lambda x: float(x.pow(2).mean().sqrt())  # noqa: E731
+    assert rms(g - r) <= 0.05 * rms(r)
+
+
+def _flash_bwd_case(dev, B, Sq, Skv, H, Hkv, Dh, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q = _t(rng.normal(size=(B, Sq, H, Dh)), dtype, dev).requires_grad_()
+    k = _t(rng.normal(size=(B, Skv, Hkv, Dh)), dtype, dev).requires_grad_()
+    v = _t(rng.normal(size=(B, Skv, Hkv, Dh)), dtype, dev).requires_grad_()
+    do = _t(rng.normal(size=(B, Sq, H, Dh)), dtype, dev)
+    qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32,
+                      device=dev).expand(B, Sq).contiguous()
+    kp = torch.arange(Skv, dtype=torch.int32, device=dev).expand(
+        B, Skv).contiguous()
+    qp[0, 0] = -1                  # a row with no valid key: mean(V)
+    kp[B - 1, 3] = -1              # an invalid slot
+    return q, k, v, do, qp, kp
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 5, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_matches_plain(dev, Dh, G, dtype):
+    """dQ, dK, dV through the autograd Function (the forward kernel with
+    its log-sum-exp, then the backward kernel) against the plain backward,
+    causal, with a window at Dh 256, over 70 queries and 90 keys (ragged
+    tiles), a row with no valid key and an invalid key slot."""
+    Hkv = 2
+    window = 24 if Dh == 256 else 0
+    q, k, v, do, qp, kp = _flash_bwd_case(dev, 2, 70, 90, G * Hkv, Hkv, Dh,
+                                          dtype, seed=Dh + G)
+    n0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    t0 = fa_ops.bwd_tensor_core_launches
+    out = fa_ops.flash_attention(q, k, v, q_positions=qp, kv_positions=kp,
+                                 causal=True, window=window)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches, fa_ops.bwd_launches) == (n0 + 1, b0 + 1)
+    tc = dtype == torch.bfloat16 and Dh in (64, 128)
+    assert fa_ops.bwd_tensor_core_launches == t0 + int(tc)
+    refs = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), do,
+                                   q_positions=qp, kv_positions=kp,
+                                   causal=True, window=window)
+    for got, ref in zip((q.grad, k.grad, v.grad), refs):
+        assert got.dtype == dtype
+        _bwd_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_non_causal_matches_plain(dev, Dh, dtype):
+    """Whisper's encoder and cross-attention: non-causal, keys past the
+    queries, the cross keys' tail invalid."""
+    q, k, v, do, qp, kp = _flash_bwd_case(dev, 2, 40, 100, 6, 6, Dh, dtype,
+                                          seed=Dh)
+    qp = torch.arange(40, dtype=torch.int32, device=dev).expand(
+        2, 40).contiguous()
+    kp[:, 80:] = -1
+    out = fa_ops.flash_attention(q, k, v, q_positions=qp, kv_positions=kp,
+                                 causal=False)
+    out.backward(do)
+    refs = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), do,
+                                   q_positions=qp, kv_positions=kp,
+                                   causal=False)
+    for got, ref in zip((q.grad, k.grad, v.grad), refs):
+        _bwd_close(got, ref, dtype)
+
+
+def test_flash_backward_refuses_a_head_dim_before_the_forward(dev):
+    q = torch.zeros(1, 8, 2, 32, device=dev, requires_grad=True)
+    kv = torch.zeros(1, 8, 2, 32, device=dev)
+    pos = torch.arange(8, dtype=torch.int32, device=dev)[None]
+    n0 = fa_ops.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q, kv, kv, q_positions=pos, kv_positions=pos)
+    assert fa_ops.launches == n0
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 37, 70), (3, 129, 16), (1, 1, 33),
+                                   (4, 512, 2560)])
+def test_scan_backward_equals_plain_bitwise(dev, B, S, D):
+    """The reversed scan runs in the forward kernel, which rounds as the
+    plain loop: da and db equal the plain backward bit for bit."""
+    rng = np.random.default_rng(B + S + D)
+    a = torch.as_tensor(rng.uniform(0.5, 1.0, size=(B, S, D)),
+                        dtype=torch.float32).to(dev).requires_grad_()
+    b = torch.as_tensor(rng.normal(size=(B, S, D)),
+                        dtype=torch.float32).to(dev).requires_grad_()
+    dh = torch.as_tensor(rng.normal(size=(B, S, D)),
+                         dtype=torch.float32).to(dev)
+    n0, b0 = lru_ops.launches, lru_ops.bwd_launches
+    h = lru_ops.linear_scan(a, b)
+    h.backward(dh)
+    torch.cuda.synchronize()
+    assert (lru_ops.launches, lru_ops.bwd_launches) == (n0 + 1, b0 + 1)
+    da, db = linear_scan_bwd_ref(a.detach(), h.detach(), dh)
+    assert torch.equal(a.grad, da) and torch.equal(b.grad, db)

@@ -66,7 +66,12 @@ def test_every_module_imports_without_jax():
               "repro_torch.workloads", "repro_torch.workloads.library",
               "repro_torch.runtime", "repro_torch.runtime.executors",
               "repro_torch.runtime.session", "repro_torch.runtime.migrate",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.training",
+              "repro_torch.training.trainer",
+              "repro_torch.training.optimizer",
+              "repro_torch.training.checkpoint",
+              "repro_torch.training.grad_compress",
+              "repro_torch.training.data", "repro_torch.launch.train"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
@@ -95,6 +100,8 @@ def test_no_source_imports_jax_or_the_jax_package():
         assert PKG / sub / "__init__.py" in sources, sub
     assert PKG / "runtime" / "executors.py" in sources
     assert PKG / "launch" / "serve.py" in sources
+    assert PKG / "launch" / "train.py" in sources
+    assert PKG / "training" / "trainer.py" in sources
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -153,6 +160,35 @@ def test_processor_entry_points_default_to_cuda_and_raise_without_a_card():
     host = EngineHost(models, engine_kwargs={"device": "cpu"})
     assert host.engine_for("qwen3-14b").device.type == "cpu"
     host.shutdown()
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_a_card():
+    """``train_loop`` and the training launcher with default arguments ask
+    for the card, and raise where there is none; the CPU is reached only
+    when asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.launch import train
+    from repro_torch.training import (DataConfig, TrainerConfig,
+                                      train_loop)
+    cfg = get_smoke("qwen3-1.7b")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_loop(cfg, TrainerConfig(), dcfg, num_steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen3-1.7b", "--steps", "1"])
+    out = train_loop(cfg, TrainerConfig(), dcfg, num_steps=1, device="cpu")
+    assert out["model"].device.type == "cpu"
+
+
+def test_training_imports_no_jax():
+    code = ("import sys\n"
+            "import repro_torch.training, repro_torch.launch.train\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
+                   timeout=120, capture_output=True)
 
 
 def test_registry_holds_the_ported_config_only():
