@@ -99,8 +99,10 @@ each:
    (``[kernels.flash_bwd]``) at qwen3's, the hybrid's (also with a
    128-key window) and whisper's encoder and cross-attention shapes, f32
    and bf16 against its plain version, the forward's log-sum-exp, a row
-   with no valid key, a control that drops a dV tile; the scan backward
-   (``[kernels.scan_bwd]``) against autograd through the plain scan;
+   with no valid key, a control that drops a dV tile, two calls bitwise
+   equal, every bf16 shape on the tensor cores; the scan backward
+   (``[kernels.scan_bwd]``, one kernel a call) against autograd through
+   the plain scan, bitwise;
    full-width qwen3-1.7b through ``train_loop`` (``[train.qwen3]``: bf16,
    B=8, S=512, remat, 20 steps; the loss must fall; 28 forward, 28
    recompute and 28 backward flash launches a step, the forward ones on
@@ -109,7 +111,8 @@ each:
    copy cut to 4 layers, a control that drops dK); ``[train.checkpoint]``
    (a resume at step 10 against the continuous run, a control with the
    moments lost); ``[train.hybrid]`` (recurrentgemma-2b, 3 steps, the
-   flash and scan backward counted) and ``[train.audio]`` (whisper-tiny,
+   flash and scan backward counted, every flash backward on the tensor
+   cores; ``.profile`` one step) and ``[train.audio]`` (whisper-tiny,
    3 steps over 1500 frames: causal, non-causal and cross backward);
 11. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
    single and blocked arms as entries of their own; the two backward
@@ -158,6 +161,25 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)
+    queued behind a sleep kernel: the host has queued every call before
+    the first runs, so no host gap enters, as it does in ``time_ms`` when
+    a call's host work outlasts its device work."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -2923,7 +2945,8 @@ def f32_agreement(torch, out, ref, tol=1e-4):
 
 # what the kernels line keeps of each [kernels.flash_bwd] shape
 BWD_KEYS = ("shape", "body", "max_abs_err", "ms", "device_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "queued_ms",
+            "library_queued_ms")
 # name, B, Sq, Skv, H, Hkv, Dh, causal, window, valid keys
 FLASH_BWD_SHAPES = (
     ("qwen3", 8, 512, 512, 16, 8, 128, True, 0, 512),
@@ -2941,11 +2964,14 @@ def kernels_flash_bwd(torch, F, fa_ops, flash_attention_bwd_ref,
     the backward kernel) against ``flash_attention_bwd_ref`` on the same
     inputs, in f32 (within 1e-4 of each gradient's scale) and bf16
     (``bf16_agreement``); the forward's lse against its plain version; a
-    control with the last valid KV tile's dV dropped must fail; a row with
-    no valid key gets dQ = 0, adds nothing to dK and sends dO/Skv to every
-    key's dV.  Timed in bf16 (events and the profiler's device time)
-    beside the plain version and SDPA's backward (never called by the
-    port).  Returns {shape: numbers}."""
+    control with the last valid KV tile's dV dropped must fail; two calls
+    on the same inputs give the same bits; every bf16 shape takes the
+    tensor cores; a row with no valid key gets dQ = 0, adds nothing to dK
+    and sends dO/Skv to every key's dV.  Timed in bf16 (events and the
+    profiler's device time) beside the plain version and SDPA's backward
+    (never called by the port), both also with their calls queued behind a
+    sleep kernel (``queued_ms``), since SDPA's host work through autograd
+    can outlast its device work.  Returns {shape: numbers}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20)
     res = {}
@@ -2992,6 +3018,13 @@ def kernels_flash_bwd(torch, F, fa_ops, flash_attention_bwd_ref,
                     r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
                 assert ok, (name, tag, n, r)
             r[f"lse_err_{tag}"] = lse_err
+            # determinism: two calls on the same inputs, bitwise equal
+            first = fa_ops.flash_attention_bwd(q, k, v, do, lse, **kw)
+            second = fa_ops.flash_attention_bwd(q, k, v, do, lse, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(first, second)), \
+                (name, tag, "two calls differ")
+            r[f"deterministic_{tag}"] = "bitwise"
+            del first, second
         # control: the last valid KV tile's dV dropped
         dv_c = got[2].clone()
         dv_c[:, (valid - 1) // 64 * 64:valid] = 0
@@ -3035,16 +3068,24 @@ def kernels_flash_bwd(torch, F, fa_ops, flash_attention_bwd_ref,
                   "device_ms": profile_calls(torch, run, 5)[1],
                   "plain_ms": time_ms(torch, plain, iters=2, warmup=1),
                   "bound_ms": b_ms, "bound_by": b_by,
-                  "library_ms": time_ms(torch, library, iters=10)})
+                  "library_ms": time_ms(torch, library, iters=10),
+                  "queued_ms": queued_ms(torch, run),
+                  "library_queued_ms": queued_ms(torch, library)})
         del o, qt, kt, vt
         res[name] = r
         r["body"] = "tensor cores" if fa_ops.bwd_uses_tensor_cores(
             torch.bfloat16, Dh) else "CUDA cores"
+        assert r["body"] == "tensor cores", (name, r["body"])
+        r["head_split"] = fa_ops.bwd_head_split(
+            B, Skv, Hkv, H // Hkv, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
         log("kernels.flash_bwd", call=name,
             **{k_: (f"{v_:.5g}" if isinstance(v_, float) else v_)
                for k_, v_ in r.items()},
             tolerance=f"f32 1e-4*scale; bf16 {BF16_AGREEMENT}",
-            kernels="3 (D, dK/dV, dQ); f32 on the CUDA cores")
+            kernels="bf16: metadata, D, dK/dV + dQ in one launch, the "
+                    "splits' sum when split; f32: D, dK/dV, dQ on the CUDA "
+                    "cores")
         torch.cuda.empty_cache()
 
     # a row with no valid key at qwen3's width: only it carries dO
@@ -3076,11 +3117,11 @@ def kernels_flash_bwd(torch, F, fa_ops, flash_attention_bwd_ref,
 
 def kernels_scan_bwd(torch, lru_ops, linear_scan_ref, linear_scan_bwd_ref):
     """The scan's backward at the hybrid's training shape (4, 512, 2560):
-    through the autograd Function (the reversed scan in the forward
-    kernel) against autograd through ``linear_scan_ref`` in f32 and, bit
-    for bit, against ``linear_scan_bwd_ref``; a control that reverses the
-    adjoint without the shift of a by one must fail.  Returns its kernels
-    entry."""
+    through the autograd Function (one launch of the backward kernel, and
+    one kernel in the profiler's trace of a call) against autograd through
+    ``linear_scan_ref`` in f32 and, bit for bit, against
+    ``linear_scan_bwd_ref``; a control that reverses the adjoint without
+    the shift of a by one must fail.  Returns its kernels entry."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(21)
     B, S, D = 4, 512, 2560
@@ -3110,6 +3151,9 @@ def kernels_scan_bwd(torch, lru_ops, linear_scan_ref, linear_scan_bwd_ref):
     def run():
         return lru_ops.linear_scan_bwd(a, hd, dh)
 
+    _, device_ms, kernels_seen = profile_calls(torch, run, 20)
+    assert len(kernels_seen) == 1 and "linear_scan_bwd_kernel" in \
+        kernels_seen[0][0], kernels_seen
     b_ms, b_by = bound(5 * B * S * D * 4, 3 * B * S * D, "float32")
     entry = {
         "name": "linear_scan_bwd", "route": "cuda",
@@ -3119,8 +3163,7 @@ def kernels_scan_bwd(torch, lru_ops, linear_scan_ref, linear_scan_bwd_ref):
         "launches": None, "max_abs_err": max(
             (la.grad - ra.grad).abs().max().item(),
             (lb.grad - rb.grad).abs().max().item()),
-        "ms": time_ms(torch, run, iters=20),
-        "device_ms": profile_calls(torch, run, 20)[1],
+        "ms": time_ms(torch, run, iters=20), "device_ms": device_ms,
         "plain_ms": time_ms(torch, lambda: linear_scan_bwd_ref(a, hd, dh),
                             iters=2, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -3128,7 +3171,8 @@ def kernels_scan_bwd(torch, lru_ops, linear_scan_ref, linear_scan_bwd_ref):
                         "recurrence"}
     log("kernels.scan_bwd", shape=f"B={B},S={S},D={D},f32",
         vs_autograd_through_plain=json.dumps(errs),
-        vs_plain_bwd="bitwise", control_unshifted_adjoint=
+        vs_plain_bwd="bitwise", kernels_a_call=kernels_seen[0][0],
+        control_unshifted_adjoint=
         f"max {c_err:.3e}: fails", ms=f"{entry['ms']:.4f}",
         device_ms=f"{entry['device_ms']:.4f}",
         plain_ms=f"{entry['plain_ms']:.4f}", bound_ms=f"{b_ms:.5f}",
@@ -3384,20 +3428,30 @@ def train_phases(torch, np, get_config, build_model, fa_ops, lru_ops,
             "scan": (2 * (n_rec - n_left) + n_left) * steps,
             "scan_bwd": n_rec * steps}
     assert all(counts[k] == n for k, n in want.items()), (counts, want)
-    # Dh 256: the forward on the tensor cores, the backward on the CUDA
-    # cores
+    # Dh 256: forward and backward on the tensor cores
     assert counts["flash_tensor_core"] == counts["flash"] \
-        and counts["flash_bwd_tensor_core"] == 0, counts
+        and counts["flash_bwd_tensor_core"] == counts["flash_bwd"], counts
     out_counts["scan_bwd"] = counts["scan_bwd"]
+    hybrid_ms = 1e3 * statistics.median(h["seconds"] for h in hist)
+    step_fn = make_train_step(out["model"], th)
+    batch = device_batch(torch, SyntheticLMData(dh), steps, dev)
+    wall, busy, top = profile_calls(
+        torch, lambda: step_fn(out["opt_state"], batch), 1)
+    del step_fn, batch
     log("train.hybrid", model=f"recurrentgemma-2b(full width, "
         f"{cfg.num_layers} blocks: {n_attn} attention at Dh 256, {n_rec} "
         f"RG-LRU)", dtype="bf16", batch="B=4,S=512", steps=steps,
         losses=json.dumps([round(h["loss"], 4) for h in hist]),
         grad_norms=json.dumps([round(h["grad_norm"], 4) for h in hist]),
         step_ms=json.dumps([round(1e3 * h["seconds"], 3) for h in hist]),
+        step_ms_median=f"{hybrid_ms:.3f}",
         max_memory_allocated_gib=
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
         launches=json.dumps(counts))
+    log("train.hybrid.profile", call="one train step (B=4, S=512)",
+        wall_ms=f"{wall:.3f}", device_busy_ms=f"{busy:.3f}",
+        device_busy_share=f"{busy / wall:.3f}",
+        top_kernels_ms=json.dumps(top))
     del out
     free_cuda(torch)
 

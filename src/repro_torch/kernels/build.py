@@ -118,8 +118,10 @@ def library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.flash_attention_fwd.argtypes = [p] * 7 + [i] * 10 + [p]
             lib.flash_attention_fwd.restype = i
-            lib.flash_attention_bwd.argtypes = [p] * 11 + [i] * 10 + [p]
+            lib.flash_attention_bwd.argtypes = [p] * 11 + [i] * 11 + [p]
             lib.flash_attention_bwd.restype = i
+            lib.flash_attention_bwd_workspace.argtypes = [i] * 8
+            lib.flash_attention_bwd_workspace.restype = ctypes.c_longlong
             lib.paged_decode_attention_fwd.argtypes = \
                 [p] * 11 + [i] * 11 + [p]
             lib.paged_decode_attention_fwd.restype = i
@@ -127,6 +129,8 @@ def library() -> ctypes.CDLL:
             lib.decode_attention_fwd.restype = i
             lib.linear_scan_fwd.argtypes = [p] * 3 + [i] * 3 + [p]
             lib.linear_scan_fwd.restype = i
+            lib.linear_scan_bwd.argtypes = [p] * 5 + [i] * 3 + [p]
+            lib.linear_scan_bwd.restype = i
             lib.prefix_attention_fwd.argtypes = [p] * 13 + [i] * 8 + [p]
             lib.prefix_attention_fwd.restype = i
             _lib = lib

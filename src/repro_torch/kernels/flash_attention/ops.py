@@ -16,11 +16,13 @@ through ``FlashAttention``, an autograd ``Function``.  On the card its
 forward is the same kernel, which then also writes each row's
 log-sum-exp, and its backward is ``csrc/flash_attention_bwd.cu`` at Dh
 64, 128 and 256, with two bodies by ``bwd_uses_tensor_cores``: bfloat16
-at Dh 64 and 128 on the tensor cores (``bwd_tensor_core_launches``),
-float32 and Dh 256 on the CUDA cores (``bwd_cuda_core_launches``);
-``bwd_launches`` counts both.  On the CPU forward and backward are the
-plain versions in ``ref.py``.  Without grad the call is the direct
-launch the serving path makes, with no log-sum-exp.
+on the tensor cores (``bwd_tensor_core_launches``), float32 on the CUDA
+cores (``bwd_cuda_core_launches``); ``bwd_launches`` counts both.  Where
+its dK/dV walk has too few blocks for the card, the tensor-core body
+splits each group's query heads (``bwd_head_split``) and sums the splits
+in a fixed order, so every call gives the same bits.  On the CPU forward
+and backward are the plain versions in ``ref.py``.  Without grad the call
+is the direct launch the serving path makes, with no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import threading
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import launch_on
+from repro_torch.kernels.common import launch_on, sm_count
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                     flash_attention_lse_ref,
                                                     flash_attention_ref)
@@ -37,13 +39,15 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128, 256)
-BWD_TENSOR_CORE_HEAD_DIMS = (64, 128)
+BWD_TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+BWD_KEY_TILE = 64               # keys a block of the dK/dV walk holds
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID = 65535                # the backward grid's batch and head axes
 
 # kernel launches since the last reset (CPU calls are not counted): all of
 # them, and those of each body; the backward's likewise, a launch being
-# one call (three kernels: D, dK/dV, dQ)
+# one call (tensor cores: metadata, D, dK/dV with dQ and, split, the sum
+# of the splits; CUDA cores: D, dK/dV, dQ)
 launches = 0
 tensor_core_launches = 0
 cuda_core_launches = 0
@@ -92,6 +96,20 @@ def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
 def bwd_uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
     """Whether a backward launch takes the tensor-core (mma.sync) body."""
     return dtype == torch.bfloat16 and head_dim in BWD_TENSOR_CORE_HEAD_DIMS
+
+
+def bwd_head_split(batch: int, kv_len: int, kv_heads: int, group: int,
+                   sms: int) -> int:
+    """Blocks over which the tensor-core backward's dK/dV walk splits each
+    group's ``group`` query heads: 1 when its (key tile, KV head, batch)
+    blocks already number ``sms`` (one an SM), else the smallest divisor
+    of ``group`` that brings them there, or ``group``.  Depends on the
+    shapes and the card only, so a call's sums run in one order."""
+    blocks = -(-kv_len // BWD_KEY_TILE) * kv_heads * batch
+    for n in range(1, group + 1):
+        if group % n == 0 and blocks * n >= sms:
+            return n
+    return group
 
 
 def _check(q, k, v, q_positions, kv_positions):
@@ -183,15 +201,19 @@ def flash_attention_bwd(q, k, v, dout, lse, *, q_positions, kv_positions,
     if tc and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError("flash_attention backward: bf16 q, k, v, dout must "
                          "be 16-byte aligned")
+    n_split = bwd_head_split(B, Skv, Hkv, H // Hkv,
+                             sm_count(q.device.index)) if tc else 1
     lib = build.library()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    ws = torch.empty(lib.flash_attention_bwd_workspace(
+        B, Sq, Skv, H, Hkv, Dh, int(tc), n_split), dtype=torch.uint8,
+        device=q.device)
     err = launch_on(q.device, lambda stream: lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), q_positions.data_ptr(), kv_positions.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, Sq,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), B, Sq,
         Skv, H, Hkv, Dh, int(causal), int(window), DTYPES[q.dtype], int(tc),
-        stream))
+        n_split, stream))
     build.check(err, "flash_attention_bwd")
     _count_bwd(tc)
     return dq, dk, dv

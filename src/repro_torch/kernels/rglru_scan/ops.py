@@ -7,10 +7,9 @@ cannot take raises.
 
 Training: when grad is enabled and a or b requires grad, the call goes
 through ``LinearScan``, an autograd ``Function``.  Its backward is the same
-recurrence backwards in time (``ref.linear_scan_bwd_ref``): on the card the
-forward kernel runs over the time-reversed ``(a shifted by one, dh)``,
-counted in ``bwd_launches``, and the reversal, the shift and ``da = g *
-h_{t-1}`` are elementwise torch ops; on the CPU it is the plain version.
+recurrence backwards in time (``ref.linear_scan_bwd_ref``): on the card one
+launch of the backward kernel, which reads a, h and dh in place and writes
+da and db, counted in ``bwd_launches``; on the CPU the plain version.
 """
 from __future__ import annotations
 
@@ -21,14 +20,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import launch_on
 from repro_torch.kernels.rglru_scan.ref import (linear_scan_bwd_ref,
-                                               linear_scan_ref,
-                                               scan_bwd_inputs,
-                                               scan_bwd_outputs)
+                                               linear_scan_ref)
 
 MAX_BATCH = 65535               # the grid's second dimension
 
 # kernel launches since the last reset (CPU calls are not counted): the
-# forward's, and the backward's (one reversed scan each)
+# forward's, and the backward's
 launches = 0
 bwd_launches = 0
 # the engines' loop threads launch concurrently: every update of the
@@ -65,7 +62,7 @@ def _check(a, b):
         raise ValueError(f"linear_scan: unsupported device {a.device}")
 
 
-def _launch(a, b, backward=False):
+def _launch(a, b):
     """The kernel over contiguous CUDA (B,S,D) float32 a, b."""
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("linear_scan: inputs must be contiguous")
@@ -77,20 +74,31 @@ def _launch(a, b, backward=False):
     err = launch_on(a.device, lambda stream: lib.linear_scan_fwd(
         a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D, stream))
     build.check(err, "linear_scan_fwd")
-    _count(backward)
+    _count()
     return h
 
 
 def linear_scan_bwd(a, h, dh):
     """The gradient of ``h = linear_scan(a, b)`` for ``dh``: (da, db).  For
-    CUDA tensors the reversed recurrence runs in the kernel; for CPU
-    tensors ``linear_scan_bwd_ref``."""
+    CUDA tensors one launch of the backward kernel; for CPU tensors
+    ``linear_scan_bwd_ref``."""
     _check(a, dh)
+    _check(a, h)
     if a.device.type == "cpu":
         return linear_scan_bwd_ref(a, h, dh)
-    a_rev, dh_rev = scan_bwd_inputs(a, dh)
-    g_rev = _launch(a_rev.contiguous(), dh_rev.contiguous(), backward=True)
-    return scan_bwd_outputs(g_rev, h)
+    if not all(t.is_contiguous() for t in (a, h, dh)):
+        raise ValueError("linear_scan backward: inputs must be contiguous")
+    B, S, D = a.shape
+    if B > MAX_BATCH:
+        raise ValueError(f"linear_scan: batch {B} exceeds {MAX_BATCH}")
+    lib = build.library()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    err = launch_on(a.device, lambda stream: lib.linear_scan_bwd(
+        a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
+        db.data_ptr(), B, S, D, stream))
+    build.check(err, "linear_scan_bwd")
+    _count(backward=True)
+    return da, db
 
 
 class LinearScan(torch.autograd.Function):

@@ -6,11 +6,14 @@ its backward.
 the CUDA kernel (``csrc/rglru_scan.cu``) is held against, bitwise: each
 step is a multiply, then an add, both rounded, as the kernel rounds them.
 
-``linear_scan_bwd_ref`` is its gradient: the adjoint ``g_t = dh_t +
-a_{t+1} g_{t+1}`` is the same recurrence run backwards in time, so it is
-``linear_scan_ref`` over the time-reversed ``(a shifted by one, dh)``; then
-``db = g`` and ``da = g * h_{t-1}``.  The CUDA backward runs the same
-reversal through the forward kernel.
+``linear_scan_bwd_ref`` is its gradient, the plain version of the CUDA
+backward: the adjoint ``g_t = dh_t + a_{t+1} g_{t+1}`` (a zero past the
+end) is the same recurrence run backwards in time, then ``db = g`` and
+``da_t = g_t h_{t-1}``.  It walks time from the last step in the kernel's
+order and rounding, so the kernel equals it bitwise
+(``tests/test_torch_cuda.py``); it also equals ``linear_scan_ref`` over
+the time-reversed ``(a shifted by one, dh)`` bit for bit
+(``tests/test_torch_backward_tiles.py``).
 """
 from __future__ import annotations
 
@@ -30,21 +33,18 @@ def linear_scan_ref(a, b, h0=None):
     return out
 
 
-def scan_bwd_inputs(a, dh):
-    """The time-reversed ``(a_{t+1}, dh_t)`` (a zero past the end) whose
-    forward scan is the reversed adjoint."""
-    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
-    return a_next.flip(1), dh.flip(1)
-
-
-def scan_bwd_outputs(g_rev, h):
-    """(da, db) from the reversed adjoint and the forward's h."""
-    g = g_rev.flip(1)
-    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
-    return g * h_prev, g
-
-
 def linear_scan_bwd_ref(a, h, dh):
     """The gradient of ``h = linear_scan_ref(a, b)`` (zero start) for the
-    output gradient ``dh``: (da, db), each (B,S,D) f32."""
-    return scan_bwd_outputs(linear_scan_ref(*scan_bwd_inputs(a, dh)), h)
+    output gradient ``dh``: (da, db), each (B,S,D) f32.  Each step is a
+    multiply, then an add (``g = a_{t+1} * g + dh_t``), and ``da`` one
+    multiply, as the kernel rounds them."""
+    B, S, D = a.shape
+    g = torch.zeros((B, D), dtype=a.dtype, device=a.device)
+    a_next = torch.zeros_like(g)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(S - 1, -1, -1):
+        g = a_next * g + dh[:, t]
+        db[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t else torch.zeros_like(g))
+        a_next = a[:, t]
+    return da, db

@@ -9,10 +9,11 @@ rounds probs to bf16 before PV, the kernel keeps them in f32), and
 bitwise where the JAX suite pins it (single == blocked, fused ==
 scatter-then-attend) or the kernel rounds exactly as its plain version
 (the RG-LRU scan: a multiply, then an add, per step, and so its
-backward, the same scan reversed).  The flash backward (bf16 at Dh 64
-and 128 on the tensor cores, the rest on the CUDA cores): in f32 within
+backward, the same scan walked backwards in one kernel).  The flash
+backward (bf16 on the tensor cores, f32 on the CUDA cores): in f32 within
 1e-4 of each gradient's scale; in bf16 every element within 2e-3 +
-8e-3 |ref| and the RMS error within 5% of the reference's RMS.
+8e-3 |ref| and the RMS error within 5% of the reference's RMS; two calls
+on the same inputs bitwise equal.
 """
 import numpy as np
 import pytest
@@ -726,7 +727,7 @@ def test_flash_backward_matches_plain(dev, Dh, G, dtype):
     out.backward(do)
     torch.cuda.synchronize()
     assert (fa_ops.launches, fa_ops.bwd_launches) == (n0 + 1, b0 + 1)
-    tc = dtype == torch.bfloat16 and Dh in (64, 128)
+    tc = dtype == torch.bfloat16 and Dh in (64, 128, 256)
     assert fa_ops.bwd_tensor_core_launches == t0 + int(tc)
     refs = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), do,
                                    q_positions=qp, kv_positions=kp,
@@ -756,6 +757,34 @@ def test_flash_backward_non_causal_matches_plain(dev, Dh, dtype):
         _bwd_close(got, ref, dtype)
 
 
+@pytest.mark.parametrize("B,S,H,Hkv,Dh,window", [
+    (1, 200, 10, 1, 256, 0), (2, 130, 16, 8, 128, 0), (2, 150, 6, 6, 64, 0),
+    (1, 200, 10, 1, 256, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(dev, B, S, H, Hkv, Dh, window,
+                                         dtype):
+    """Two calls on the same inputs give the same bits: every output is
+    written by one block, and the split heads' partial dK and dV (here
+    every one of the hybrid's 10 heads its own block) are summed in split
+    order."""
+    q, k, v, do, qp, kp = _flash_bwd_case(dev, B, S, S, H, Hkv, Dh, dtype,
+                                          seed=S + Dh)
+    kw = dict(q_positions=qp, kv_positions=kp, causal=True, window=window)
+    _, lse = fa_ops.flash_attention_lse(q.detach(), k.detach(), v.detach(),
+                                        **kw)
+    if Hkv == 1:                    # the hybrid's: the split heads' sum runs
+        assert fa_ops.bwd_head_split(B, S, Hkv, H // Hkv,
+                                     torch.cuda.get_device_properties(
+                                         dev).multi_processor_count) > 1
+    first = fa_ops.flash_attention_bwd(q.detach(), k.detach(), v.detach(), do,
+                                       lse, **kw)
+    second = fa_ops.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                        do, lse, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_flash_backward_refuses_a_head_dim_before_the_forward(dev):
     q = torch.zeros(1, 8, 2, 32, device=dev, requires_grad=True)
     kv = torch.zeros(1, 8, 2, 32, device=dev)
@@ -769,8 +798,8 @@ def test_flash_backward_refuses_a_head_dim_before_the_forward(dev):
 @pytest.mark.parametrize("B,S,D", [(2, 37, 70), (3, 129, 16), (1, 1, 33),
                                    (4, 512, 2560)])
 def test_scan_backward_equals_plain_bitwise(dev, B, S, D):
-    """The reversed scan runs in the forward kernel, which rounds as the
-    plain loop: da and db equal the plain backward bit for bit."""
+    """The backward kernel walks time backwards and rounds as the plain
+    reverse walk: da and db equal the plain backward bit for bit."""
     rng = np.random.default_rng(B + S + D)
     a = torch.as_tensor(rng.uniform(0.5, 1.0, size=(B, S, D)),
                         dtype=torch.float32).to(dev).requires_grad_()
@@ -785,3 +814,29 @@ def test_scan_backward_equals_plain_bitwise(dev, B, S, D):
     assert (lru_ops.launches, lru_ops.bwd_launches) == (n0 + 1, b0 + 1)
     da, db = linear_scan_bwd_ref(a.detach(), h.detach(), dh)
     assert torch.equal(a.grad, da) and torch.equal(b.grad, db)
+
+
+def test_scan_backward_is_one_kernel_with_no_copies(dev):
+    """One call of the scan's backward is one launch of one kernel: no
+    flip, cat or elementwise pass around it in the profiler's trace."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(5)
+    a, h, dh = (torch.as_tensor(rng.normal(size=(2, 300, 96)),
+                                dtype=torch.float32).to(dev)
+                for _ in range(3))
+    lru_ops.linear_scan_bwd(a, h, dh)
+    torch.cuda.synchronize()
+    b0, calls = lru_ops.bwd_launches, 0
+    names = []
+    for _ in range(3):              # a session may report no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lru_ops.linear_scan_bwd(a, h, dh)
+            torch.cuda.synchronize()
+        calls += 1
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert lru_ops.bwd_launches == b0 + calls
+    assert len(names) == 1 and "linear_scan_bwd_kernel" in names[0], names
