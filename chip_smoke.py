@@ -128,8 +128,10 @@ import contextlib
 import gc
 import json
 import pathlib
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -192,17 +194,24 @@ def profile_calls(torch, fn, n: int):
     """Wall ms per call (host clock around ``n`` calls ending in a
     synchronize, under the profiler), device-busy ms per call (the sum of
     the profiler's CUDA kernel intervals) and the six kernels with the
-    most device time, as [name, ms per call]."""
+    most device time, as [name, ms per call].  Where the profiler reports
+    no device event in three sessions, device-busy ms is the CUDA events'
+    time around the same calls, the list of kernels is empty, and a line
+    on stderr says so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     # a session now and then reports no device events: take the next one
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
+            start.record()
             for _ in range(n):
                 fn()
+            end.record()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         per_kernel = {}
@@ -213,10 +222,39 @@ def profile_calls(torch, fn, n: int):
                     + e.time_range.elapsed_us()
         if per_kernel:
             break
+    else:
+        print("chip_smoke: the profiler reported no device event; device "
+              "ms from CUDA events", file=sys.stderr, flush=True)
+        return 1e3 * wall / n, start.elapsed_time(end) / n, []
     busy_us = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     return (1e3 * wall / n, busy_us / 1e3 / n,
             [[k, round(us / 1e3 / n, 4)] for k, us in top])
+
+
+def graph_nodes(torch, fn):
+    """The work one call of ``fn`` puts on the card, read without the
+    profiler: ``fn`` is captured into a CUDA graph and the graph's nodes
+    (kernels, copies, memsets) are listed from its DOT dump, each as the
+    first 200 characters of its label."""
+    fn()
+    torch.cuda.synchronize()
+    # kept, not instantiated: the dump reads the captured graph
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    g.enable_debug_mode()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "graph.dot"
+        g.debug_dump(str(path))
+        dot = path.read_text()
+    del g
+    # a node's statement opens its line with its quoted name and "[";
+    # an edge's has "->" after the name
+    heads = list(re.finditer(r'^"graph_\d+_node_\d+"\s*\[', dot, re.M))
+    return [" ".join(dot[h.end():nxt].split())[:200]
+            for h, nxt in zip(heads, [h.start() for h in heads[1:]]
+                              + [len(dot)])]
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -3117,9 +3155,10 @@ def kernels_flash_bwd(torch, F, fa_ops, flash_attention_bwd_ref,
 
 def kernels_scan_bwd(torch, lru_ops, linear_scan_ref, linear_scan_bwd_ref):
     """The scan's backward at the hybrid's training shape (4, 512, 2560):
-    through the autograd Function (one launch of the backward kernel, and
-    one kernel in the profiler's trace of a call) against autograd through
-    ``linear_scan_ref`` in f32 and, bit for bit, against
+    through the autograd Function (one launch of the backward kernel, one
+    node in a CUDA graph captured from a call, and one kernel in the
+    profiler's trace of a call where it reports device events) against
+    autograd through ``linear_scan_ref`` in f32 and, bit for bit, against
     ``linear_scan_bwd_ref``; a control that reverses the adjoint without
     the shift of a by one must fail.  Returns its kernels entry."""
     dev = torch.device("cuda")
@@ -3151,9 +3190,18 @@ def kernels_scan_bwd(torch, lru_ops, linear_scan_ref, linear_scan_bwd_ref):
     def run():
         return lru_ops.linear_scan_bwd(a, hd, dh)
 
+    # one call is one kernel node of a captured graph and, where the
+    # profiler reports device events, one kernel in its trace
+    nodes = graph_nodes(torch, run)
+    assert len(nodes) == 1 and "linear_scan_bwd_kernel" in nodes[0], nodes
+    # control: the plain version's per-step passes are many nodes
+    plain_nodes = len(graph_nodes(
+        torch, lambda: linear_scan_bwd_ref(a, hd, dh)))
+    assert plain_nodes > 1, "the graph's nodes cannot see a pass"
     _, device_ms, kernels_seen = profile_calls(torch, run, 20)
-    assert len(kernels_seen) == 1 and "linear_scan_bwd_kernel" in \
-        kernels_seen[0][0], kernels_seen
+    assert not kernels_seen or (
+        len(kernels_seen) == 1
+        and "linear_scan_bwd_kernel" in kernels_seen[0][0]), kernels_seen
     b_ms, b_by = bound(5 * B * S * D * 4, 3 * B * S * D, "float32")
     entry = {
         "name": "linear_scan_bwd", "route": "cuda",
@@ -3171,7 +3219,10 @@ def kernels_scan_bwd(torch, lru_ops, linear_scan_ref, linear_scan_bwd_ref):
                         "recurrence"}
     log("kernels.scan_bwd", shape=f"B={B},S={S},D={D},f32",
         vs_autograd_through_plain=json.dumps(errs),
-        vs_plain_bwd="bitwise", kernels_a_call=kernels_seen[0][0],
+        vs_plain_bwd="bitwise", graph_nodes_a_call=len(nodes),
+        control_plain_graph_nodes=plain_nodes,
+        profiler_kernels_a_call=(json.dumps([k for k, _ in kernels_seen])
+                                 if kernels_seen else "no device events"),
         control_unshifted_adjoint=
         f"max {c_err:.3e}: fails", ms=f"{entry['ms']:.4f}",
         device_ms=f"{entry['device_ms']:.4f}",

@@ -15,6 +15,8 @@ backward (bf16 on the tensor cores, f32 on the CUDA cores): in f32 within
 8e-3 |ref| and the RMS error within 5% of the reference's RMS; two calls
 on the same inputs bitwise equal.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -816,9 +818,11 @@ def test_scan_backward_equals_plain_bitwise(dev, B, S, D):
     assert torch.equal(a.grad, da) and torch.equal(b.grad, db)
 
 
-def test_scan_backward_is_one_kernel_with_no_copies(dev):
+def test_scan_backward_is_one_kernel_with_no_copies(dev, tmp_path):
     """One call of the scan's backward is one launch of one kernel: no
-    flip, cat or elementwise pass around it in the profiler's trace."""
+    flip, cat or elementwise pass around it, in a CUDA graph captured from
+    a call (its nodes listed from the graph's DOT dump) and, where the
+    profiler reports device events, in the profiler's trace."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(5)
     a, h, dh = (torch.as_tensor(rng.normal(size=(2, 300, 96)),
@@ -826,17 +830,23 @@ def test_scan_backward_is_one_kernel_with_no_copies(dev):
                 for _ in range(3))
     lru_ops.linear_scan_bwd(a, h, dh)
     torch.cuda.synchronize()
-    b0, calls = lru_ops.bwd_launches, 0
-    names = []
-    for _ in range(3):              # a session may report no device events
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            lru_ops.linear_scan_bwd(a, h, dh)
-            torch.cuda.synchronize()
-        calls += 1
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-    assert lru_ops.bwd_launches == b0 + calls
-    assert len(names) == 1 and "linear_scan_bwd_kernel" in names[0], names
+    b0 = lru_ops.bwd_launches
+    # kept, not instantiated: the dump reads the captured graph
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    g.enable_debug_mode()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        lru_ops.linear_scan_bwd(a, h, dh)
+    g.debug_dump(str(tmp_path / "graph.dot"))
+    dot = (tmp_path / "graph.dot").read_text()
+    nodes = re.split(r'^"graph_\d+_node_\d+"\s*\[', dot, flags=re.M)[1:]
+    assert len(nodes) == 1 and "linear_scan_bwd_kernel" in nodes[0], dot
+    assert lru_ops.bwd_launches == b0 + 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lru_ops.linear_scan_bwd(a, h, dh)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert lru_ops.bwd_launches == b0 + 2
+    assert not names or (len(names) == 1
+                         and "linear_scan_bwd_kernel" in names[0]), names
