@@ -24,8 +24,11 @@ each:
    prime and long prefixes with ragged suffixes, the main paths'
    full-width shapes with kernel / plain / library times and the card's
    lower bound, the paged kernel and flash at the head groupings of
-   the MoE and dense-family models, G = 1 with 16 KV heads, 3 and 4,
-   flash non-causal at whisper's encoder and cross-attention shapes, and
+   the MoE and dense-family models, G = 1 with 16 KV heads, 3, 4, 8
+   (deepseek-67b) and 6 (mixtral-8x22b), flash at mixtral's 4500-token
+   prefill under its 4096 window and the decode kernel over its wrapped
+   4096-slot ring, flash non-causal at whisper's encoder and
+   cross-attention shapes, and
    the decode kernel as whisper's decode cross-attention through the
    attention dispatcher, with its rows of no frame at 0, each held
    element by element and in RMS to the reference's scale, with
@@ -77,11 +80,22 @@ each:
    (bf16 and the float32 copy); a prompt cold and over a shared prefix on
    the float32 copy, logged: the reference's capacity is per prefill
    chunk, so their tokens need not agree;
-8. the rest of the dense family: full-width qwen3-8b (G=4, untied head)
-   and llama3.2-3b (G=3), four requests each, the launch checks, CUDA
-   against plain step parity in bf16, and on a float32 copy cut to 4
-   layers the paged path's tokens equal to the dense view's;
-9. the last single-card families, each engine freed before the next
+8. the rest of the dense family: full-width qwen3-8b (G=4, untied head),
+   llama3.2-3b (G=3) and deepseek-67b (G=8, cut to 40 of its 95
+   layers), four requests each, the launch checks, CUDA against plain
+   step parity in bf16, and on a float32 copy cut to 4 layers the paged
+   path's tokens equal to the dense view's;
+9. sliding-window attention: full-width mixtral-8x22b cut to 12 of its
+   56 layers (8 experts top-2, window 4096) on the dense-row path, six
+   requests, two of them past the window at a length no multiple of it:
+   flash prefill, the decode kernel over each row's ring, launch counts;
+   its profile; CUDA against plain step parity (bf16 where no router
+   choice flipped, and float32); on float32 copies cut to 3 layers the
+   kernels' greedy tokens equal to the plain versions', and a ring past
+   the window equal to the teacher-forced forward, with the JAX
+   reference's ring placement and a ring of the first 4096 positions as
+   controls that must fail;
+10. the last single-card families, each engine freed before the next
    loads: full-width internvl2-2b (four requests with 256 patch
    embeddings, two text-only ones sharing a prefix; flash prefill, the
    fused paged decode, every paged launch split; its profile; CUDA
@@ -95,7 +109,7 @@ each:
    encoder, self- and cross-attention, decode for both, launch counts
    asserted; its profile; step parity; batch invariance of the 300-frame
    request, float32 asserted);
-10. training, each model freed before the next: the flash backward
+11. training, each model freed before the next: the flash backward
    (``[kernels.flash_bwd]``) at qwen3's, the hybrid's (also with a
    128-key window) and whisper's encoder and cross-attention shapes, f32
    and bf16 against its plain version, the forward's log-sum-exp, a row
@@ -114,7 +128,7 @@ each:
    flash and scan backward counted, every flash backward on the tensor
    cores; ``.profile`` one step) and ``[train.audio]`` (whisper-tiny,
    3 steps over 1500 frames: causal, non-causal and cross backward);
-11. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
+12. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
    single and blocked arms as entries of their own; the two backward
    kernels last), the card's ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -125,6 +139,7 @@ line.  Without a CUDA device it exits 2 before doing anything.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import pathlib
@@ -1087,28 +1102,24 @@ def hybrid_phases(torch, np, get_config, tokenizer, InferenceEngine, fa_ops,
     return launches
 
 
-def hybrid_ring(torch, model, m32, words, vocab):
-    """Prefill 2100 tokens (past the 2048 window, 2100 % 2048 != 0), then
-    decode 8 under "cuda": the logits must follow the teacher-forced
-    forward, which needs position p in ring slot p % 2048.  Run on a
-    float32 copy of the weights, where the two paths differ by rounding
+def ring_check(torch, phase, m32, toks, S, controls):
+    """Prefill ``S`` of ``toks`` (past the window, S % window != 0), then
+    decode the rest under "cuda": the logits must follow the
+    teacher-forced forward, which needs position p in ring slot p % T.
+    ``m32`` is a float32 model, where the two paths differ by rounding
     only (in bf16 their rounding differs by a few percent of the logit
-    scale on random weights, which would hide a misplaced ring); as a
-    control, the same decode from the ring placed as the JAX reference
-    places it (slots 0..T-1).  ``m32`` is the float32 copy of ``model``."""
-    dev = torch.device("cuda")
-    S, n_dec = 2100, 8
-    T = model.cfg.local_attn_window
-    toks = torch.as_tensor(words.integers(1, vocab, S + n_dec),
-                           dtype=torch.int32, device=dev)[None]
+    scale on random weights, which would hide a misplaced ring).
+    ``controls`` maps a name to (a function of the prefilled cache giving
+    a faulty one, whether its decode must fail the limit).  Returns the
+    log line's fields."""
+    n_dec = toks.shape[1] - S
     full, _ = m32(toks, impl="cuda")
     ref = full[0, S - 1:].clone()
     del full
     logits, cache = m32.prefill(toks[:, :S], impl="cuda")
-    assert cache["g2_k"].shape[2] == T
-    misplaced = {k: (torch.roll(v, -(S % T), dims=2)
-                     if k.endswith("_k") or k.endswith("_v") else v.clone())
-                 for k, v in cache.items()}
+    rings = [k for k in cache if k.split("_")[-1] in ("k", "v")]
+    T = cache[rings[0]].shape[2]
+    assert S > T and S % T and all(cache[k].shape[2] == T for k in rings)
 
     def decode(cache):
         got = [logits[0]]
@@ -1117,22 +1128,49 @@ def hybrid_ring(torch, model, m32, words, vocab):
             got.append(lg[0])
         return torch.stack(got)
 
-    got, control = decode(cache), decode(misplaced)
+    faulty = {n: (make(cache), must_fail)
+              for n, (make, must_fail) in controls.items()}
+    got = decode(cache)
     diff = (got - ref).abs().max().item()
-    ctrl = (control - ref).abs().max().item()
     scale = ref.abs().max().item()
-    # f32 rounding leaves about 1.5e-5 of the scale; the misplaced ring
-    # about 1.3e-2 of it.  The limit sits between, and the control must
-    # fail it, or the check could not see a misplaced ring.
+    # f32 rounding leaves about 1.5e-5 of the scale; the limit sits above
+    # it, and a control that must fail shows the check can see its fault
     limit = 1e-3 * scale
     assert bool(torch.isfinite(got).all()) and diff <= limit, (diff, scale)
-    assert ctrl > limit, (ctrl, scale)
-    log("hybrid.ring", dtype="float32", prompt=S, window=T,
-        ring_offset=S % T, decoded=n_dec, positions_checked=n_dec + 1,
+    fields = {}
+    for name, (c, must_fail) in faulty.items():
+        ctrl = (decode(c) - ref).abs().max().item()
+        assert ctrl > limit or not must_fail, (name, ctrl, scale)
+        fields[f"control_{name}_max_abs_diff"] = \
+            f"{ctrl:.4e}" + (": fails" if must_fail else "")
+    log(phase, dtype="float32", prompt=S, window=T, ring_offset=S % T,
+        decoded=n_dec, positions_checked=n_dec + 1,
         max_abs_diff=f"{diff:.4e}", logit_scale=f"{scale:.4e}",
         tolerance="1e-3*scale",
-        same_argmax=torch.equal(got.argmax(-1), ref.argmax(-1)),
-        control_slots_0_to_T_max_abs_diff=f"{ctrl:.4e}")
+        same_argmax=torch.equal(got.argmax(-1), ref.argmax(-1)), **fields)
+
+
+def reference_ring_placement(torch, S):
+    """A control: the prefilled ring as the JAX reference places it (the
+    last T positions in slots 0..T-1), from the port's (slot p % T)."""
+    def make(cache):
+        return {k: (torch.roll(v, -(S % v.shape[2]), dims=2)
+                    if k.split("_")[-1] in ("k", "v") else v.clone())
+                for k, v in cache.items()}
+    return make
+
+
+def hybrid_ring(torch, model, m32, words, vocab):
+    """Prefill 2100 tokens (past the 2048 window, 2100 % 2048 != 0) on
+    ``m32``, the float32 copy of ``model``, then decode 8 against the
+    teacher-forced forward (``ring_check``); the ring as the JAX reference
+    places it must fail."""
+    S, n_dec = 2100, 8
+    toks = torch.as_tensor(words.integers(1, vocab, S + n_dec),
+                           dtype=torch.int32, device="cuda")[None]
+    assert model.cfg.local_attn_window == 2048
+    ring_check(torch, "hybrid.ring", m32, toks, S,
+               {"slots_0_to_T": (reference_ring_placement(torch, S), True)})
 
 
 def kernels_paged_one_chunk(torch, F, rng, pd_ops, fused_ref, q, pools):
@@ -1597,7 +1635,8 @@ def processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
 # (model, H, Hkv); the first fills the kernels line's own entries, the
 # others its "groups"
 GROUPINGS = (("qwen3-1.7b", 16, 8), ("deepseek-moe-16b", 16, 16),
-             ("llama3.2-3b", 24, 8), ("qwen3-8b", 32, 8))
+             ("llama3.2-3b", 24, 8), ("qwen3-8b", 32, 8),
+             ("deepseek-67b", 64, 8), ("mixtral-8x22b", 48, 8))
 
 
 def kernels_at_grouping(torch, F, rng, arch, H, Hkv):
@@ -2143,8 +2182,10 @@ def profile_engine(torch, np, eng, prompt, max_new):
 
 def cut_copy(eng, layers):
     """The engine's first ``layers`` layers with its embedding, final norm
-    and head, as a float32 state_dict (bf16 -> f32 is exact)."""
-    return {k: v.float() for k, v in eng.model.state_dict().items()
+    and head: a state_dict of the engine's own tensors, no copy, which
+    outlive ``unload`` while it is held.  Loading it into a float32 model
+    casts bf16 to f32 exactly."""
+    return {k: v for k, v in eng.model.state_dict().items()
             if not k.startswith("blocks.") or int(k.split(".")[1]) < layers}
 
 
@@ -2315,20 +2356,28 @@ def moe_phases(torch, np, get_config, tokenizer, InferenceEngine, moe,
 
 
 def dense_family_phase(torch, np, arch, get_config, tokenizer,
-                       InferenceEngine, fa_ops, pd_ops, da_ops, plain_calls):
+                       InferenceEngine, fa_ops, pd_ops, da_ops, plain_calls,
+                       layers=None):
     """``arch`` at full width in bf16 (random weights from seed 0, engine
-    defaults): four requests of 100-300 tokens, 16 new each, one sharing
-    a prefix, through flash prefill and the fused paged decode; the CUDA
-    step against the plain step; then a float32 copy cut in depth served
-    on the paged path and on the dense view (decode attention), whose
-    greedy tokens must agree.  Returns the kernels' launches."""
-    cfg = get_config(arch)
+    defaults), cut to ``layers`` when given: four requests of 100-300
+    tokens, 16 new each, one sharing a prefix, through flash prefill and
+    the fused paged decode; the CUDA step against the plain step; then a
+    float32 copy cut in depth served on the paged path and on the dense
+    view (decode attention), whose greedy tokens must agree.  Returns the
+    kernels' launches."""
+    full = get_config(arch)
+    cfg = full.replace(num_layers=layers) if layers else full
+    depth = f"{cfg.num_layers}" + (f" of {full.num_layers}" if layers
+                                   else "") + " layers"
     tag = "dense." + arch.replace("-", "_").replace(".", "_")
     eng = InferenceEngine(cfg, seed=0)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before_gib = torch.cuda.memory_allocated() / 2**30
     load_s = eng.load()
+    torch.cuda.empty_cache()        # the init's float32 draws, cached
+    free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    assert free_gib >= 8, f"{free_gib:.1f} GiB free after the load"
     prompts, n_shared = family_prompts(
         np, tokenizer, cfg.vocab_size, 5,
         {"shared": 100, "share_a": (80, True), "share_b": (190, True),
@@ -2360,7 +2409,7 @@ def dense_family_phase(torch, np, arch, get_config, tokenizer,
     assert arms[True] == arms[False], "paged and dense-view tokens differ"
     assert da_ops.launches > 0, "the dense view launched no decode kernel"
     decode_s = sum(step_s)
-    log(tag, model=f"{arch}(full width, {cfg.num_layers} layers, "
+    log(tag, model=f"{arch}(full width, {depth}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads, G="
         f"{cfg.num_heads // cfg.num_kv_heads}, Dh "
         f"{cfg.resolved_head_dim}, "
@@ -2374,6 +2423,7 @@ def dense_family_phase(torch, np, arch, get_config, tokenizer,
         decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
         max_memory_allocated_gib=f"{peak:.3f}",
         allocated_before_load_gib=f"{before_gib:.3f}",
+        free_gib_after_load=f"{free_gib:.3f}",
         flash_launches=launches["flash_attention"],
         flash_tensor_core_launches=launches["flash_tensor_core"],
         paged_launches=launches["paged_decode_attention"],
@@ -2386,6 +2436,203 @@ def dense_family_phase(torch, np, arch, get_config, tokenizer,
                                 "tolerance": "5e-2*scale"}),
         float32_layers=CUT_LAYERS, paged_vs_dense_view="equal",
         dense_view_decode_launches=da_ops.launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# sliding-window attention: mixtral-8x22b on dense rows
+# ---------------------------------------------------------------------------
+
+MIXTRAL_LAYERS = 12      # of 56: 60.9 GB of bf16 weights on one card
+MIXTRAL_F32_LAYERS = 3   # the float32 copies: 31.6 GB each
+# words of each prompt (plus BOS): two past the 4096-token window at an S
+# that is no multiple of it, four under it; five at once, one after the
+# first decode step
+MIXTRAL_PROMPTS = {"long_a": 4499, "short_b": 149, "long_c": 4199,
+                   "short_d": 379, "short_e": 99, "late_f": 229}
+MIXTRAL_REQUESTS = (("long_a", "short_b", "long_c", "short_d", "short_e"),
+                    ("late_f",))
+
+
+def routed_parity(torch, moe, model, view, tok):
+    """One decode step of an MoE model under impl="cuda" and impl="torch"
+    over copies of ``view``, as ``decode_parity``, with the router's top-k
+    expert selections that differ between the two, over every layer, for
+    each row (a decode step routes each row alone).  Returns a log
+    record: the difference over all rows and over the rows where no
+    selection differs."""
+    logits, tops = {}, {}
+    for impl in ("cuda", "torch"):
+        with moe_routing(moe) as rec:
+            lg, _ = model.decode_step(tok, {k: v.clone() for k, v in
+                                            view.items()}, impl=impl)
+        assert lg.shape == (len(tok), model.cfg.padded_vocab) \
+            and bool(torch.isfinite(lg).all()), impl
+        logits[impl] = lg.float()
+        tops[impl] = [e["top_i"].reshape(len(tok), -1).tolist()
+                      for e in rec]
+    flips = [sum(len(set(a[i]) - set(b[i]))
+                 for a, b in zip(tops["cuda"], tops["torch"]))
+             for i in range(len(tok))]
+    clean = [i for i, f in enumerate(flips) if f == 0]
+    d = (logits["cuda"] - logits["torch"]).abs()
+    scale = logits["torch"].abs().max().item()
+    same = torch.equal(logits["cuda"].argmax(-1), logits["torch"].argmax(-1))
+    return {**parity_fields(d.max().item(), scale, same),
+            "topk_selections_differing": sum(flips),
+            "rows_without_a_differing_selection": len(clean),
+            "max_abs_diff_over_those_rows": (
+                f"{d[clean].max().item():.4e}" if clean else None)}
+
+
+def swa_phases(torch, np, get_config, tokenizer, InferenceEngine,
+               build_model, fa_ops, pd_ops, da_ops, plain_calls):
+    """mixtral-8x22b at full width in bf16, depth cut to
+    ``MIXTRAL_LAYERS`` (random weights from seed 0, max_seq_len 4608):
+    six requests through flash prefill (window 4096), the MoE layers and
+    the decode kernel over each row's ring on the dense-row path, the two
+    long rows past the window; its profile; the CUDA step against the
+    plain step in bf16 on a view of wrapped rings.  Then float32 copies
+    cut to ``MIXTRAL_F32_LAYERS``: the same requests' greedy tokens on the
+    kernels equal to the plain versions' (``attention_impl="torch"``),
+    and, at a dropless capacity, a ring past the window against the
+    teacher-forced forward (``ring_check``).  Returns the kernels'
+    launches in the serving run."""
+    from repro_torch.engine.models import moe
+    dev = torch.device("cuda")
+    full = get_config("mixtral-8x22b")
+    cfg = full.replace(num_layers=MIXTRAL_LAYERS)
+    depth = f"{MIXTRAL_LAYERS} of {full.num_layers} layers"
+    eng = InferenceEngine(cfg, seed=0, max_seq_len=4608)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    load_s = eng.load()
+    torch.cuda.empty_cache()        # the init's float32 draws, cached
+    free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    assert free_gib >= 8, f"{free_gib:.1f} GiB free after the load"
+    prompts = word_prompts(np, tokenizer, cfg.vocab_size, 9,
+                           MIXTRAL_PROMPTS)
+    W = cfg.swa_window
+    lens = {n: len(p) for n, p in prompts.items()}
+    assert sum(n > W and n % W != 0 for n in lens.values()) == 2
+    max_new = 24
+    kinds = []
+    outs, launches, step_s, admit_s, run_s = serve_dense(
+        torch, eng, prompts, max_new, MIXTRAL_REQUESTS, fa_ops, da_ops,
+        pd_ops, plain_calls)
+    st = eng.stats
+    assert launches["flash_attention"] > 0 \
+        and launches["decode_attention"] > 0, launches
+    decode_s = sum(step_s)
+    m = cfg.moe
+    tag = "swa.mixtral_8x22b"
+    log(f"{tag}.run", model=f"mixtral-8x22b(full width, {depth}, "
+        f"{m.num_experts} experts top-{m.top_k}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads, Dh {cfg.resolved_head_dim}, window "
+        f"{W})", dtype="bf16", params_gb=f"{eng.param_bytes() / 1e9:.3f}",
+        requests=len(outs), prompt_tokens=json.dumps(lens),
+        tokens_each=max_new, peak_batch=st.peak_batch,
+        view_rebuilds=st.view_rebuilds, decode_steps=len(step_s),
+        decode_tokens=st.decode_tokens, kv_pages="none",
+        load_s=f"{load_s:.3f}", free_gib_after_load=f"{free_gib:.3f}",
+        run_s=f"{run_s:.3f}")
+    log(f"{tag}.perf", depth=depth,
+        mean_step_ms=f"{1e3 * decode_s / len(step_s):.3f}",
+        prefill_ms_per_request=json.dumps(
+            [round(1e3 * a, 3) for a in admit_s]),
+        decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
+        max_memory_allocated_gib=
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        launches=json.dumps(launches),
+        flash_per_request=f"{launches['flash_attention'] / len(admit_s):.1f}",
+        decode_per_step=f"{launches['decode_attention'] / len(step_s):.1f}")
+
+    # a B=8 view of the 4500-token row's wrapped ring, and its prefill
+    model = eng.model
+    toks_a = torch.as_tensor([prompts["long_a"]], dtype=torch.int32,
+                             device=dev)
+    _, cache = model.prefill(toks_a)
+    assert cache["k"].shape[2] == W
+    view = rows_view(torch, model, [model.extend_cache(cache, max_new)] * 8)
+    tok8 = torch.arange(8, dtype=torch.int32, device=dev) + 11
+    fields = {}
+    for kind, fn, n in (
+            ("decode", lambda: model.decode_step(tok8, view), 5),
+            ("prefill", lambda: model.prefill(toks_a), 2)):
+        wall, busy, top = profile_calls(torch, fn, n)
+        fields.update({f"{kind}_wall_ms": f"{wall:.3f}",
+                       f"{kind}_device_busy_ms": f"{busy:.3f}",
+                       f"{kind}_busy_share": f"{busy / wall:.3f}",
+                       f"{kind}_top_kernels_ms": json.dumps(top)})
+    log(f"{tag}.profile", depth=depth,
+        calls=f"decode_step(B=8,T={W},positions {lens['long_a']}+), "
+        f"prefill(S={lens['long_a']})", **fields)
+    # the CUDA step against the plain step, with the router's top-k
+    # selections that differ between the two (a near-tied choice that
+    # bf16 rounding flips moves its row's logits past any rounding
+    # limit): asserted in bf16 over the rows where none differs, and on
+    # the float32 copy below
+    parity = {"bf16": routed_parity(torch, moe, model, view, tok8)}
+    del view, cache
+
+    # float32 copies cut in depth, from the bf16 engine's own tensors
+    sd = cut_copy(eng, MIXTRAL_F32_LAYERS)
+    free_engine(torch, eng)
+    cut = cfg.replace(dtype="float32", num_layers=MIXTRAL_F32_LAYERS)
+    tokens = {}
+    for impl in ("cuda", "torch"):
+        e = InferenceEngine(cut.replace(attention_impl=impl), seed=0,
+                            max_seq_len=4608)
+        e.load(sd)
+        tokens[impl] = serve_requests(e, prompts, max_new,
+                                      *MIXTRAL_REQUESTS)
+        free_engine(torch, e)
+    log(f"{tag}.plain_tokens", float32_layers=MIXTRAL_F32_LAYERS,
+        requests=len(prompts), tokens=(
+            "equal" if tokens["cuda"] == tokens["torch"] else "differ"),
+        first_differing_token=json.dumps(
+            {n: first_difference(tokens["cuda"][n], tokens["torch"][n])
+             for n in prompts}))
+    assert tokens["cuda"] == tokens["torch"], \
+        "the kernels' greedy tokens differ from the plain versions'"
+
+    # the ring past the window against the forward, at a capacity that
+    # drops nothing (so a prefill and a forward of other lengths route
+    # alike); the ring as the JAX reference places it and a ring that
+    # kept the first T positions must fail
+    dropless = cut.replace(moe=dataclasses.replace(
+        cut.moe, capacity_factor=cut.moe.num_experts / cut.moe.top_k))
+    m32 = build_model(dropless, device=dev)
+    m32.load_state_dict(sd)
+    del sd
+    _, cache = m32.prefill(toks_a)
+    view = rows_view(torch, m32, [m32.extend_cache(cache, max_new)] * 8)
+    parity["float32"] = routed_parity(torch, moe, m32, view, tok8)
+    del view, cache
+    log(f"{tag}.step_parity", depth=depth, rows=8,
+        float32_layers=MIXTRAL_F32_LAYERS, arms=json.dumps(parity),
+        tolerance="bf16 5e-2*scale over the rows where no top-k selection "
+        "differs, float32 1e-3*scale over all")
+    bf16, f32 = parity["bf16"], parity["float32"]
+    clean = bf16["max_abs_diff_over_those_rows"]
+    assert clean is None \
+        or float(clean) <= 5e-2 * float(bf16["logit_scale"]), bf16
+    assert float(f32["max_abs_diff"]) <= 1e-3 * float(f32["logit_scale"])
+    S, n_dec = lens["long_a"], 8
+    toks = torch.as_tensor([prompts["long_a"] + prompts["short_b"][1:9]],
+                           dtype=torch.int32, device=dev)
+    assert toks.shape[1] == S + n_dec
+
+    def first_positions(cache):
+        return dict(m32.prefill(toks[:, :W], impl="cuda")[1],
+                    length=cache["length"].clone())
+
+    ring_check(torch, f"{tag}.ring", m32, toks, S,
+               {"slots_0_to_T": (reference_ring_placement(torch, S), True),
+                "first_T_positions": (first_positions, True)})
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2413,6 +2660,33 @@ def bf16_agreement(torch, out, ref):
 BF16_AGREEMENT = "every element 2e-3+8e-3*|ref|, RMS error 5e-2*ref RMS"
 
 
+def window_agreement(torch, out, ref, part):
+    """A bf16 output against its plain version over thousands of keys a
+    row, where the two round P to bf16 in another order and a value near
+    1-2 may differ by two of its ulps, more than ``bf16_agreement``'s
+    element rule allows: every element within the kernels' bf16 limit
+    3e-2, and the RMS error within 5% of the reference's RMS over all
+    rows and over ``part`` (a boolean mask of the leading axes: the rows
+    a window or a wrapped ring acts on), where a fault there shows.
+    Returns (max abs error, RMS error, RMS error over ``part``, the
+    reference's RMS there, whether it holds)."""
+    d = (out.float() - ref.float()).abs()
+    r = ref.float()
+
+    def rms(x):
+        return x.pow(2).mean().sqrt().item()
+
+    rms_err, rms_ref = rms(d), rms(r)
+    p_err, p_ref = rms(d[part]), rms(r[part])
+    ok = d.max().item() <= 3e-2 and rms_err <= 5e-2 * rms_ref \
+        and p_err <= 5e-2 * p_ref
+    return d.max().item(), rms_err, p_err, p_ref, ok
+
+
+WINDOW_AGREEMENT = ("every element 3e-2, RMS error 5e-2*ref RMS over all "
+                    "rows and over the rows the window acts on")
+
+
 def last_tile_dropped(torch, kvp, tile=64):
     """``kvp`` (valid keys a prefix of each row) with each row's valid keys
     in its last ``tile``-key tile set to -1: what a kernel that skipped the
@@ -2421,6 +2695,153 @@ def last_tile_dropped(torch, kvp, tile=64):
         // tile * tile
     idx = torch.arange(kvp.shape[1], device=kvp.device)[None]
     return torch.where(idx >= start, -1, kvp).to(kvp.dtype).contiguous()
+
+
+def kernels_swa(torch, F, t, rng, fa_ops, da_ops, flash_attention_ref,
+                decode_attention_ref):
+    """The flash and decode kernels at mixtral-8x22b's shapes: 48 query
+    heads over 8 KV heads (G = 6, in the kernels' 8-row instances), Dh
+    128, window 4096, bf16.  Flash at a 4500-token causal prefill (B=1) on
+    the tensor cores; the decode kernel at a step of B=8 rows over a
+    4096-slot ring, four of whose rows have wrapped (the others hold 120
+    to 399 positions and empty slots), split.  Each is held by
+    ``window_agreement`` to its plain version, with a control that must
+    fail it (the window ignored; the wrapped rings' positions read as
+    slots 0..T-1), and timed beside the plain version and SDPA.  Returns
+    {"prefill": numbers, "ring": numbers}."""
+    import numpy as np
+    dev = torch.device("cuda")
+    H, Hkv, Dh, W = 48, 8, 128, 4096
+    res = {}
+
+    # ---- flash at the prefill of a prompt past the window
+    B, S = 1, 4500
+    q = t(rng.normal(size=(B, S, H, Dh)), torch.bfloat16)
+    k = t(rng.normal(size=(B, S, Hkv, Dh)), torch.bfloat16)
+    v = t(rng.normal(size=(B, S, Hkv, Dh)), torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].contiguous()
+
+    def run():
+        return fa_ops.flash_attention(q, k, v, q_positions=pos,
+                                      kv_positions=pos, window=W)
+
+    def plain():
+        return flash_attention_ref(q, k, v, q_positions=pos,
+                                   kv_positions=pos, window=W)
+
+    gap = pos[0][:, None] - pos[0][None, :]
+    band = (gap >= 0) & (gap < W)                          # (S, S)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                              enable_gqa=True)
+
+    n_tc = fa_ops.tensor_core_launches
+    ref = plain()
+    past = torch.zeros(B, S, dtype=torch.bool, device=dev)
+    past[:, W:] = True                            # rows the window cuts
+    err, rms_err, p_err, p_ref, ok = window_agreement(torch, run(), ref,
+                                                      past)
+    assert fa_ops.tensor_core_launches == n_tc + 1, \
+        "windowed flash missed the tensor cores"
+    assert ok, f"windowed flash: {err}, RMS {rms_err}, {p_err}/{p_ref}"
+    c_err, _, c_rms, _, c_ok = window_agreement(
+        torch, flash_attention_ref(q, k, v, q_positions=pos,
+                                   kv_positions=pos, window=0), ref, past)
+    assert not c_ok, "the check cannot see the window"
+    sdpa_err = (library().transpose(1, 2).float() - ref.float()
+                ).abs().max().item()
+    del ref
+    pairs = int(band.sum().item())
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + 4 * 2 * S
+    b_ms, b_by = bound(nbytes, 4 * Dh * H * pairs, "bfloat16")
+    r = {"shape": f"B={B},S={S},H={H},Hkv={Hkv},G={H // Hkv},Dh={Dh},"
+                  f"causal,window={W},bf16",
+         "max_abs_err": err, "ms": time_ms(torch, run, iters=10),
+         "device_ms": profile_calls(torch, run, 10)[1],
+         "plain_ms": time_ms(torch, plain, iters=3, warmup=1),
+         "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": time_ms(torch, library, iters=10)}
+    res["prefill"] = r
+    log("kernels.flash_swa", shape=r["shape"], max_abs_err=f"{err:.3e}",
+        rms_err=f"{rms_err:.3e}", rows_past_window_rms_err=f"{p_err:.3e}",
+        rows_past_window_ref_rms=f"{p_ref:.3e}", tolerance=WINDOW_AGREEMENT,
+        sdpa_err=f"{sdpa_err:.3e}",
+        control_window_ignored=f"max {c_err:.3e}, RMS past the window "
+        f"{c_rms:.3e}: fails",
+        ms=f"{r['ms']:.4f}", device_ms=f"{r['device_ms']:.4f}",
+        plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['library_ms']:.4f}",
+        bound_ms=f"{b_ms:.5f}", bound_by=b_by, pairs=pairs, bytes=nbytes,
+        body="tensor cores")
+    del q, k, v, qt, kt, vt, band, gap
+
+    # ---- decode over the ring at the serving step
+    B, T = 8, W
+    qp = np.asarray([4523, 4223, 120, 250, 330, 399, 6000, 8191])
+    kp = ring_positions(np, qp, T)
+    wrapped = qp >= T
+    q = t(rng.normal(size=(B, H, Dh)), torch.bfloat16)
+    k = t(rng.normal(size=(B, T, Hkv, Dh)), torch.bfloat16)
+    v = t(rng.normal(size=(B, T, Hkv, Dh)), torch.bfloat16)
+    qp_d = torch.as_tensor(qp, dtype=torch.int32).to(dev)
+    kp_d = torch.as_tensor(kp).to(dev)
+    slots_d = torch.as_tensor(
+        np.where(np.arange(T)[None] <= qp[:, None], np.arange(T)[None], -1),
+        dtype=torch.int32).to(dev)
+
+    def run():
+        return da_ops.decode_attention(q, k, v, q_positions=qp_d,
+                                       kv_positions=kp_d, window=W)
+
+    def plain():
+        return decode_attention_ref(q, k, v, q_positions=qp_d,
+                                    kv_positions=kp_d, window=W)
+
+    qs = q[:, :, None, :]                                  # (B,H,1,Dh)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)          # (B,Hkv,T,Dh)
+    keep = (kp_d >= 0) & (qp_d[:, None] - kp_d < W)
+    mask = keep[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    ref = plain()
+    wrapped_d = torch.as_tensor(wrapped).to(dev)
+    s0, n0 = da_ops.split_launches, da_ops.launches
+    err, rms_err, p_err, p_ref, ok = window_agreement(torch, run(), ref,
+                                                      wrapped_d)
+    assert da_ops.split_launches - s0 == da_ops.launches - n0 == 1, \
+        "the ring's decode launch was not split"
+    assert ok, f"decode ring: {err}, RMS {rms_err}, {p_err}/{p_ref}"
+    c_err, _, c_rms, _, c_ok = window_agreement(
+        torch, decode_attention_ref(q, k, v, q_positions=qp_d,
+                                    kv_positions=slots_d, window=W), ref,
+        wrapped_d)
+    assert not c_ok, "the check cannot see the ring's positions"
+    n_keys = int(keep.sum().item())
+    nbytes = 2 * q.numel() * 2 + 2 * n_keys * Hkv * Dh * 2 + 2 * B * H * 4 \
+        + 4 * (kp_d.numel() + B)
+    b_ms, b_by = bound(nbytes, 4 * Dh * H * n_keys, "bfloat16")
+    r = {"shape": f"B={B},T={T},H={H},Hkv={Hkv},G={H // Hkv},Dh={Dh},"
+                  f"window={W},bf16,positions={','.join(map(str, qp))}",
+         "max_abs_err": err, "ms": time_ms(torch, run, iters=48),
+         "device_ms": profile_calls(torch, run, 48)[1],
+         "plain_ms": time_ms(torch, plain, iters=16),
+         "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": time_ms(torch, library, iters=48)}
+    res["ring"] = r
+    log("kernels.decode_ring", shape=r["shape"], wrapped_rows=int(
+        wrapped.sum()), max_abs_err=f"{err:.3e}", rms_err=f"{rms_err:.3e}",
+        wrapped_rows_rms_err=f"{p_err:.3e}",
+        wrapped_rows_ref_rms=f"{p_ref:.3e}", tolerance=WINDOW_AGREEMENT,
+        control_positions_as_slots=f"max {c_err:.3e}, RMS over the "
+        f"wrapped rows {c_rms:.3e}: fails", ms=f"{r['ms']:.4f}", device_ms=f"{r['device_ms']:.4f}",
+        plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['library_ms']:.4f}",
+        bound_ms=f"{b_ms:.5f}", bound_by=b_by, valid_keys=n_keys,
+        bytes=nbytes)
+    return res
 
 
 def kernels_flash_noncausal(torch, F, t, rng, fa_ops, flash_attention_ref):
@@ -3751,6 +4172,10 @@ def main() -> int:
         torch, F, t, rng, fa_ops, flash_attention_ref)
     kernels[2]["cross"] = kernels_decode_cross(
         torch, F, t, rng, da_ops, decode_attention_ref, layers)
+    swa = kernels_swa(torch, F, t, rng, fa_ops, da_ops, flash_attention_ref,
+                      decode_attention_ref)
+    kernels[0]["mixtral_prefill"] = swa["prefill"]
+    kernels[2]["mixtral_ring"] = swa["ring"]
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------- 3. shared prefix
@@ -3898,14 +4323,23 @@ def main() -> int:
                               InferenceEngine, moe, fa_ops, pd_ops,
                               plain_calls)}
     # --------------------------------------------- 8. the rest of the dense
-    for arch, key in (("qwen3-8b", "qwen3_8b"),
-                      ("llama3.2-3b", "llama3_2_3b")):
+    # family, deepseek-67b cut to 40 of its 95 layers (58.7 GB in bf16)
+    for arch, key, depth in (("qwen3-8b", "qwen3_8b", None),
+                             ("llama3.2-3b", "llama3_2_3b", None),
+                             ("deepseek-67b", "deepseek_67b", 40)):
         runs[key] = dense_family_phase(
             torch, np, arch, get_config, tokenizer, InferenceEngine, fa_ops,
-            pd_ops, da_ops, plain_calls)
-    # ------------------------- 9. the VLM, the ssm and the encoder-decoder
+            pd_ops, da_ops, plain_calls, layers=depth)
     families = (torch, np, get_config, tokenizer, InferenceEngine,
                 build_model, fa_ops, pd_ops, da_ops, plain_calls)
+    # ------------------------------ 9. sliding-window attention: mixtral
+    mixtral = swa_phases(*families)
+    kernels[0]["mixtral_launches"] = mixtral["flash_attention"]
+    kernels[0]["mixtral_tensor_core_launches"] = \
+        mixtral["flash_tensor_core"]
+    kernels[2]["mixtral_launches"] = mixtral["decode_attention"]
+    kernels[2]["mixtral_split_launches"] = mixtral["decode_split"]
+    # ------------------------ 10. the VLM, the ssm and the encoder-decoder
     runs["vlm"] = vlm_phases(*families)
     ssm_phases(*families)
     audio = audio_phases(*families)
@@ -3932,7 +4366,7 @@ def main() -> int:
             e[f"{key}_launches"] = r[count]
     kernels.extend(arm_entries)
 
-    # ----------------------------------------------------- 10. training
+    # ----------------------------------------------------- 11. training
     flash_bwd = kernels_flash_bwd(torch, F, fa_ops, flash_attention_bwd_ref,
                                   flash_attention_lse_ref)
     scan_bwd = kernels_scan_bwd(torch, lru_ops, linear_scan_ref,
@@ -3953,7 +4387,7 @@ def main() -> int:
     scan_bwd["launches"] = trained["scan_bwd"]
     kernels.append(scan_bwd)
 
-    # ------------------------------------------------------ 11. the report
+    # ------------------------------------------------------ 12. the report
     log("done", wall_s=f"{time.perf_counter() - t_start:.3f}",
         build_s=f"{build.build_seconds:.3f}")
     print(json.dumps({"kernels": kernels}))

@@ -130,6 +130,17 @@ def sinusoidal_positions(length: int, dim: int,
 # attention
 # ---------------------------------------------------------------------------
 
+def ring_slot_positions(pos: torch.Tensor, T: int) -> torch.Tensor:
+    """(B, T) int32: the position each slot of a ring of T slots holds
+    once position ``pos`` (B,) is written, the newest q <= pos with q =
+    slot (mod T), -1 where none is.  ``torch.remainder`` is a floor
+    modulo, as JAX's ``%``."""
+    slots = torch.arange(T, dtype=torch.int32, device=pos.device)[None]
+    p = pos[:, None].to(torch.int32)
+    q = p - torch.remainder(p - slots, T)
+    return torch.where((q >= 0) & (q <= p), q, -1).to(torch.int32)
+
+
 def attention_torch(q, k, v, *, q_positions, kv_positions, causal=True,
                     window=0):
     """Plain attention, the counterpart of ``attention_xla``: q (B,Sq,H,Dh)

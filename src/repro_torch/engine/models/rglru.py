@@ -331,14 +331,7 @@ class GriffinLM(nn.Module):
             out[key] = F.pad(cache[key], (0, 0, 0, 0, 0, target - T))
         return out
 
-    def _kv_slot_positions(self, pos: torch.Tensor, T: int) -> torch.Tensor:
-        """(B, T) int32: the newest position q <= pos with q = slot (mod T)
-        held in each ring slot, -1 where none is.  ``torch.remainder`` is
-        a floor modulo, as JAX's ``%``."""
-        slots = torch.arange(T, dtype=torch.int32, device=pos.device)[None]
-        p = pos[:, None].to(torch.int32)
-        q = p - torch.remainder(p - slots, T)
-        return torch.where((q >= 0) & (q <= p), q, -1).to(torch.int32)
+    _kv_slot_positions = staticmethod(L.ring_slot_positions)
 
     # --------------------------------------------------------------- prefill
     @torch.no_grad()

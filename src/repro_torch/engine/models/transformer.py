@@ -9,8 +9,14 @@ the rest route through ``moe.py``) and the VLM (internvl2-2b: the dense
 backbone; ``forward`` and ``prefill`` take ``prefix_embeds`` (B, P,
 d_model), the stub frontend's patch embeddings, prepended before the
 first block at positions 0..P-1, so the cache holds P + S rows).
-Sliding-window attention is not ported yet and raises
-``NotImplementedError`` (ROADMAP Queue 1 item 9).
+Sliding-window attention (mixtral-8x22b, ``swa_window``) keeps its KV in
+a ring of ``cache_capacity = min(max_len, swa_window)`` slots, position p
+in slot ``p % T``; a ring wraps in place, which immutable pages cannot
+hold, so ``paged_kv_layout()`` is None and the engine serves such a model
+on dense rows (``cache_batch_axes``, ``extend_cache``).  Unlike the JAX
+``prefill``, which keeps the last T positions in slots 0..T-1, the
+port's rolls them into their ring slots, so a prompt past the window
+decodes as the teacher-forced forward does.
 
 Weights are ``(in, out)`` as in the JAX package; the blocks are a
 ``ModuleList`` where the JAX package stacks them on a leading layer axis
@@ -31,6 +37,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -78,10 +85,6 @@ class TransformerLM(nn.Module):
         if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not a transformer LM")
-        if cfg.swa_window:
-            raise NotImplementedError(
-                "sliding-window attention is not ported yet (ROADMAP "
-                "Queue 1 item 9)")
         self.cfg = cfg
         self.head_dim = cfg.resolved_head_dim
         self.dtype = getattr(torch, cfg.dtype)
@@ -231,8 +234,10 @@ class TransformerLM(nn.Module):
                 prefix_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
         """Run the full prompt, after ``prefix_embeds`` when given; return
-        (last-position logits, filled cache ``{"k", "v": (L,B,P+S,Hkv,Dh),
-        "length": (B,) int32}``)."""
+        (last-position logits, filled cache ``{"k", "v": (L,B,T,Hkv,Dh),
+        "length": (B,) int32}``) with ``T = cache_capacity(P+S)``: past a
+        sliding window the ring keeps the last T positions, position p in
+        slot ``p % T``."""
         cfg = self.cfg
         impl = impl or cfg.attention_impl
         x = self.embed[tokens]
@@ -241,6 +246,7 @@ class TransformerLM(nn.Module):
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S).contiguous()
+        T = self.cache_capacity(S)
         ks, vs = [], []
         for blk in self.blocks:
             q, k, v = self._qkv(blk, x, positions)
@@ -248,6 +254,9 @@ class TransformerLM(nn.Module):
                             kv_positions=positions, causal=True,
                             window=cfg.swa_window, impl=impl)
             x, _ = self._finish_block(blk, x, o)
+            if T < S:
+                k = torch.roll(k[:, S - T:], shifts=S % T, dims=1)
+                v = torch.roll(v[:, S - T:], shifts=S % T, dims=1)
             ks.append(k)
             vs.append(v)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -271,9 +280,13 @@ class TransformerLM(nn.Module):
         attention keeps pad rows out of every real row, logits are read at
         ``valid_len - 1`` and the length advances by ``valid_len``, so the
         padding is invisible.  Returns (logits (B,Vpad), cache with the
-        new length).
+        new length).  Full-attention caches only (slot s holds position s):
+        a sliding-window model raises.
         """
         cfg = self.cfg
+        if cfg.swa_window:
+            raise ValueError("chunked prefill needs full attention; a "
+                             "sliding-window model keeps a ring cache")
         impl = impl or cfg.attention_impl
         B, Ssuf = tokens.shape
         dev = tokens.device
@@ -311,12 +324,14 @@ class TransformerLM(nn.Module):
     def decode_step(self, token: torch.Tensor, cache: Cache,
                     impl: Optional[str] = None) -> Tuple[torch.Tensor, Cache]:
         """One autoregressive step over a dense cache ``{"k", "v": (L,B,T,
-        Hkv,Dh), "length": (B,)}``, the engine's dense-view arm
-        (``paged_decode=False``).
+        Hkv,Dh), "length": (B,)}``: the engine's dense-view arm
+        (``paged_decode=False``) and a sliding-window model's dense rows.
 
-        Each layer writes the new token's K/V at slot ``length`` IN PLACE
-        and attends over the slots holding positions ``<= length`` (under
-        ``impl="cuda"`` in the decode_attention kernel).  Returns (logits
+        Each layer writes the new token's K/V at slot ``length % T`` IN
+        PLACE and attends over the slots holding positions ``<= length``
+        (under ``impl="cuda"`` in the decode_attention kernel): slot s
+        holds position s, or, in a sliding-window ring, the newest
+        position congruent to s (``_kv_slot_positions``).  Returns (logits
         (B,Vpad), a dict of the same tensors with ``length + 1``).
         """
         cfg = self.cfg
@@ -325,9 +340,13 @@ class TransformerLM(nn.Module):
         T = cache["k"].shape[2]
         pos = cache["length"].to(torch.int32)
         slot = torch.remainder(pos, T).long()
-        t_idx = torch.arange(T, dtype=torch.int32, device=token.device)[None]
-        kv_pos = torch.where(t_idx <= pos[:, None], t_idx, -1).to(
-            torch.int32).contiguous()
+        if cfg.swa_window:
+            kv_pos = self._kv_slot_positions(pos, T).contiguous()
+        else:
+            t_idx = torch.arange(T, dtype=torch.int32,
+                                 device=token.device)[None]
+            kv_pos = torch.where(t_idx <= pos[:, None], t_idx, -1).to(
+                torch.int32).contiguous()
         batch_ix = torch.arange(B, device=token.device)
         x = self.embed[token][:, None, :]                    # (B,1,D)
         for i, blk in enumerate(self.blocks):
@@ -431,11 +450,35 @@ class TransformerLM(nn.Module):
     # ------------------------------------------------- paged-KV engine hooks
     def paged_kv_layout(self) -> Optional[Tuple[int, int, int]]:
         """(layers, kv_heads, head_dim) of the PagedKVCache backing this
-        model's KV."""
+        model's KV, or None for sliding-window attention: its ring wraps
+        in place, which immutable pages cannot hold, so the engine keeps
+        dense rows."""
+        if self.cfg.swa_window:
+            return None
         return (self.cfg.num_layers, self.cfg.num_kv_heads, self.head_dim)
 
+    # ------------------------------------------------ dense-row engine hooks
     def cache_capacity(self, max_len: int) -> int:
-        return max_len
+        w = self.cfg.swa_window
+        return min(max_len, w) if w else max_len
+
+    def cache_batch_axes(self, cache: Cache) -> Dict[str, int]:
+        return {k: (0 if k == "length" else 1) for k in cache}
+
+    def extend_cache(self, cache: Cache, extra: int) -> Cache:
+        """Grow the time axis by ``extra`` zero slots, up to
+        ``cache_capacity``; a ring already at the window is returned
+        unchanged."""
+        T = cache["k"].shape[2]
+        target = self.cache_capacity(T + extra)
+        if target <= T:
+            return cache
+        out = dict(cache)
+        for key in ("k", "v"):
+            out[key] = F.pad(cache[key], (0, 0, 0, 0, 0, target - T))
+        return out
+
+    _kv_slot_positions = staticmethod(L.ring_slot_positions)
 
     def cache_kv_rows_dev(self, cache: Cache, row: int, length: int):
         """One sequence's KV from a dense cache as device tensors

@@ -6,7 +6,7 @@ that the port takes over unchanged and ``training/data.py`` are copies of
 the JAX package's modules of the same name: once ``repro.`` is read as ``repro_torch.`` and the
 module docstring is dropped, each must parse to the same syntax tree as
 its original, so a copy cannot drift from the reference unnoticed.  The
-three runtime modules the port changes on purpose are compared statement
+two runtime modules the port changes on purpose are compared statement
 by statement, down to each class's members, and may differ only in the
 statements ``CHANGED`` names.
 """
@@ -28,9 +28,6 @@ SUBPACKAGES = ("core", "workloads", "runtime", "training")
 # left out, or rewritten for PyTorch (then the port has a module of the
 # same name that is not compared)
 NOT_COPIED = {
-    # the simulated backend waits for a later slice of the port
-    "runtime/simulator.py": "simulated backend, not ported yet",
-    "runtime/opwise.py": "simulated backend, not ported yet",
     # training: the JAX modules work on pytrees of jax arrays
     "training/__init__.py": "rewritten: imports the rewritten modules",
     "training/optimizer.py": "rewritten: AdamW on dicts of torch tensors",
@@ -58,12 +55,6 @@ CHANGED = {
         "ProcessorConfig.hardware": "the cost model plans on the port's "
                                     "card, not always on h200",
         "ProcessorSession._build_cm": "plans on config.hardware",
-    },
-    "runtime/__init__.py": {
-        "from repro_torch.runtime.opwise": "simulated backend, not ported",
-        "from repro_torch.runtime.simulator": "simulated backend, not "
-                                              "ported",
-        "__all__": "exports what the port has (no simulated backend)",
     },
 }
 COPIED = sorted(

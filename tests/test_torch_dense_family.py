@@ -1,8 +1,9 @@
 """The rest of the port's dense family against the JAX package, on the CPU.
 
-``qwen3-8b`` (four query heads per KV head, qk-norm, an untied head) and
-``llama3.2-3b`` (three query heads per KV head, no qk-norm, tied) need no
-code of their own: the smoke configs in float32 run through the port's
+``qwen3-8b`` (four query heads per KV head, qk-norm, an untied head),
+``llama3.2-3b`` (three query heads per KV head, no qk-norm, tied) and
+``deepseek-67b`` (eight query heads per KV head, no qk-norm, untied) need
+no code of their own: the smoke configs in float32 run through the port's
 ``TransformerLM`` (logits within 1e-4 of JAX's on bridged weights) and
 its ``InferenceEngine`` (the JAX engine's greedy tokens, request for
 request, on the paged path and on the dense view, with a prefix-sharing
@@ -29,7 +30,7 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke  # noqa: E402
 from repro_torch.engine.engine import InferenceEngine  # noqa: E402
 from repro_torch.engine.models import build_model  # noqa: E402
 
-DENSE = ("qwen3-8b", "llama3.2-3b")
+DENSE = ("qwen3-8b", "llama3.2-3b", "deepseek-67b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,7 +46,8 @@ def _one_torch_thread():
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen3-8b", "llama3.2-3b",
                                   "deepseek-moe-16b", "recurrentgemma-2b",
                                   "internvl2-2b", "xlstm-350m",
-                                  "whisper-tiny"])
+                                  "whisper-tiny", "mixtral-8x22b",
+                                  "deepseek-67b"])
 def test_param_counts_equal_jax(arch):
     """The counts, and the cost model's profile built on them (resident
     bytes, active parameters per token), equal the JAX package's."""
@@ -61,6 +63,9 @@ def test_param_counts_equal_jax(arch):
         full = get_config(arch)
         assert 16.3e9 < full.param_count() < 16.5e9
         assert full.active_param_count() < full.param_count() / 5
+    if arch in ("mixtral-8x22b", "deepseek-67b"):
+        # more than one 80 GB card holds in bf16 at full depth
+        assert get_config(arch).param_count() * 2 > 80e9
 
 
 @pytest.fixture(scope="module", params=DENSE)
@@ -76,7 +81,7 @@ def weights(request):
 def test_bridge_and_logits_match_jax(weights):
     arch, jeng, cfg, sd = weights
     assert ("lm_head" in sd) == (not cfg.tie_embeddings) \
-        == (arch == "qwen3-8b")
+        == (arch in ("qwen3-8b", "deepseek-67b"))
     tm = build_model(cfg, device="cpu")
     tm.load_state_dict(sd)
     jm = jax_build(jax_smoke(arch).replace(dtype="float32"))

@@ -8,8 +8,12 @@ epochs that interleave templates and credits cross-template warm aliases.
 Through the port's real engines one mega-DAG run gives the outputs of
 running each template's slice on its own, and equals the JAX package's
 mega-DAG run on the same bridged weights (``get_smoke("qwen3-1.7b")`` in
-float32, CPU).  The simulator's A/B cases wait for the simulated backend.
+float32, CPU).  On the simulated backend an empty template slice costs
+nothing, and the port's simulator gives the JAX package's makespan and
+records, bitwise, on the same plan.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -18,6 +22,9 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from repro.configs import get_smoke as jax_smoke  # noqa: E402
+from repro.core import consolidate as jax_consolidate  # noqa: E402
+from repro.core import consolidate_multi as jax_consolidate_multi  # noqa
+from repro.core import parse_workflow as jax_parse  # noqa: E402
 from repro.engine.engine import InferenceEngine as JaxEngine  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
@@ -25,7 +32,8 @@ from repro_torch.core import (CostModel, EpochDPSolver, HARDWARE,  # noqa: E402
                               PAPER_MODELS, SolverConfig, consolidate,
                               consolidate_multi, parse_workflow)
 from repro_torch.core.state import WorkerContext  # noqa: E402
-from repro_torch.runtime import ProcessorConfig, RealProcessor  # noqa: E402
+from repro_torch.runtime import (ProcessorConfig, RealProcessor,  # noqa
+                                 SimulatedProcessor)
 from repro_torch.runtime.coordinator import BatchState  # noqa: E402
 from repro_torch.runtime.executors import EngineHost  # noqa: E402
 from repro_torch.runtime.migrate import KVMigrator  # noqa: E402
@@ -71,14 +79,19 @@ def _plan(g, cons, workers):
                          SolverConfig(num_workers=workers)).solve()
 
 
-def _halo_plan(g, cons, workers):
-    """The benchmarks' plan: tools priced at their physical count."""
+def _halo_cm(g, cons):
+    """The benchmarks' cost model (``benchmarks.common.make_cm``): tools
+    priced at their physical count."""
     batch = {nid: (cons.macro(nid).n_logical if g.nodes[nid].is_llm()
                    else len(cons.physical_signatures(nid)))
              for nid in g.nodes}
-    cm = CostModel(g, HARDWARE["h200"], PAPER_MODELS, batch_sizes=batch,
-                   warm_aliases=cons.warm_aliases())
-    return EpochDPSolver(g.llm_dag(), cm,
+    return CostModel(g, HARDWARE["h200"], PAPER_MODELS, batch_sizes=batch,
+                     warm_aliases=cons.warm_aliases())
+
+
+def _halo_plan(g, cons, workers):
+    """The benchmarks' plan, on ``_halo_cm``."""
+    return EpochDPSolver(g.llm_dag(), _halo_cm(g, cons),
                          SolverConfig(num_workers=workers)).solve()
 
 
@@ -329,3 +342,43 @@ def test_real_multi_vs_per_template_serial_bitwise_and_jax():
             mkey = f"{int(q) + off}:t{k}/{node}"
             assert multi_results[mkey] == val, mkey
         off += len(tb)
+
+
+def test_empty_slice_costs_nothing_in_simulator():
+    """An empty template slice's LLM macro-nodes are not simulated as
+    batch-1 inferences with phantom model switches; the run is priced
+    like template A alone.  Both runs equal the JAX simulator's, bitwise,
+    on the same plan."""
+    from benchmarks.common import make_cm as jax_make_cm
+    from repro import core as J
+    from repro.runtime import SimulatedProcessor as JaxSimulated
+
+    def jax_plan(g, cons, workers):
+        cm = J.CostModel(g, J.HARDWARE["h200"], J.PAPER_MODELS,
+                         batch_sizes={n: len(cons.macro(n).bindings)
+                                      for n in g.nodes},
+                         warm_aliases=cons.warm_aliases())
+        return J.EpochDPSolver(g.llm_dag(), cm,
+                               J.SolverConfig(num_workers=workers)).solve()
+
+    binds = [{"p": "x"}, {"p": "y"}]
+    reps = {}
+    for side, parse, multi, single, sim, cm, plan in (
+            ("jax", jax_parse, jax_consolidate_multi, jax_consolidate,
+             JaxSimulated, jax_make_cm, jax_plan),
+            ("port", parse_workflow, consolidate_multi, consolidate,
+             SimulatedProcessor, _halo_cm, _plan)):
+        ga, gb = parse(WF_A), parse(WF_B)
+        mc = multi([(ga, binds), (gb, [])])
+        ca = single(ga, binds)
+        reps[side] = [sim(g, cm(g, c), 2).run(c, plan(g, c, 2))
+                      for g, c in ((mc.template, mc), (ga, ca))]
+    for rep, jrep in zip(reps["port"], reps["jax"]):
+        assert rep.makespan == jrep.makespan
+        assert [dataclasses.astuple(r) for r in rep.records] == \
+            [dataclasses.astuple(r) for r in jrep.records]
+    rep, alone = reps["port"]
+    for r in rep.records:
+        if r.node.startswith("t1/") and r.kind == "llm":
+            assert r.batch == 0 and (r.end - r.start) < 0.01, r
+    assert rep.makespan < alone.makespan * 1.2 + 0.1

@@ -192,15 +192,17 @@ def test_training_imports_no_jax():
 
 
 def test_registry_holds_the_ported_config_only():
-    """The registry holds the eight ported archs, each equal to the JAX
-    package's config (full and smoke), and nothing else: an unported arch
-    (mixtral-8x22b, sliding-window MoE, four cards) raises."""
+    """The registry holds the JAX package's ten archs, each equal to its
+    config (full and smoke), and nothing else: an arch name neither
+    registry has raises in both."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
     from repro.configs import get_config as jax_config
     from repro.configs import get_smoke as jax_smoke
     from repro_torch.configs import ARCH_IDS
-    assert ARCH_IDS == ("deepseek-moe-16b", "whisper-tiny", "llama3.2-3b",
-                        "qwen3-1.7b", "qwen3-8b", "internvl2-2b",
-                        "xlstm-350m", "recurrentgemma-2b")
+    assert ARCH_IDS == JAX_ARCH_IDS == (
+        "deepseek-moe-16b", "mixtral-8x22b", "whisper-tiny", "deepseek-67b",
+        "llama3.2-3b", "qwen3-1.7b", "qwen3-8b", "internvl2-2b",
+        "xlstm-350m", "recurrentgemma-2b")
     fields = ("name", "family", "num_layers", "d_model", "num_heads",
               "num_kv_heads", "d_ff", "vocab_size", "head_dim",
               "rope_theta", "qk_norm", "tie_embeddings", "norm_eps",
@@ -211,7 +213,8 @@ def test_registry_holds_the_ported_config_only():
                         ("recurrentgemma-2b", 256000),
                         ("deepseek-moe-16b", 102400), ("qwen3-8b", 152064),
                         ("llama3.2-3b", 128256), ("internvl2-2b", 92672),
-                        ("xlstm-350m", 50432), ("whisper-tiny", 51968)):
+                        ("xlstm-350m", 50432), ("whisper-tiny", 51968),
+                        ("mixtral-8x22b", 32768), ("deepseek-67b", 102400)):
         for mine, ref in ((get_config(arch), jax_config(arch)),
                           (get_smoke(arch), jax_smoke(arch))):
             for f in fields:
@@ -222,8 +225,9 @@ def test_registry_holds_the_ported_config_only():
             assert mine.param_count() == ref.param_count()
             assert mine.attention_impl == "cuda"
         assert get_config(arch).padded_vocab == vocab
-    with pytest.raises(KeyError):
-        get_config("mixtral-8x22b")
+    for get in (get_config, jax_config):
+        with pytest.raises(KeyError):
+            get("mixtral-8x7b")
 
 
 @pytest.mark.parametrize("alone", [False, True])

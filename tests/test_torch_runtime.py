@@ -8,7 +8,21 @@ weights: the JAX init, bridged into every port host.  ``results()`` must
 be equal exactly, token for token, and so must ``coalesce_stats``.
 Within the port the results must not move with tool coalescing,
 pipelining or the engine's dense-view arm (``paged_decode=False``).
+
+The simulated backend's cases of ``tests/test_runtime.py`` run on both
+packages' copies of ``SimulatedProcessor`` and ``OpWiseSimulator``, each
+on its own side's plan (equal to the other's): the makespan and every
+record must be equal, bitwise.  The simulator keys its jitter by Python's
+salted ``hash``, so the two are compared within one process, and the
+launchers' ``--mode sim`` in two processes under one ``PYTHONHASHSEED``.
 """
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -25,7 +39,9 @@ from repro.core import SolverConfig as JaxSolverConfig  # noqa: E402
 from repro.core import consolidate as jax_consolidate  # noqa: E402
 from repro.engine.engine import InferenceEngine as JaxEngine  # noqa: E402
 from repro.runtime import ProcessorConfig as JaxConfig  # noqa: E402
+from repro.runtime import OpWiseSimulator as JaxOpWise  # noqa: E402
 from repro.runtime import RealProcessor as JaxProcessor  # noqa: E402
+from repro.runtime import SimulatedProcessor as JaxSimulated  # noqa: E402
 from repro.workloads import build_workload as jax_workload  # noqa: E402
 from repro.workloads.datagen import build_database as jax_db  # noqa: E402
 from repro.workloads.tools import ToolRuntime as JaxTools  # noqa: E402
@@ -33,7 +49,8 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.core import (CostModel, EpochDPSolver, HARDWARE,  # noqa: E402
                               PAPER_MODELS, SolverConfig, consolidate)
-from repro_torch.runtime import ProcessorConfig, RealProcessor  # noqa: E402
+from repro_torch.runtime import (OpWiseSimulator, ProcessorConfig,  # noqa
+                                 RealProcessor, SimulatedProcessor)
 from repro_torch.runtime.executors import EngineHost  # noqa: E402
 from repro_torch.workloads import build_workload  # noqa: E402
 from repro_torch.workloads.datagen import build_database  # noqa: E402
@@ -195,3 +212,128 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
                for c in serve.model_configs("cpu").values())
     assert set(serve.model_configs("cuda")) == set(serve.MODEL_NAMES)
     assert serve.model_configs("cuda")["qwen3-32b"].num_layers == 28
+
+
+# ------------------------------------------------------- the simulated backend
+
+SIDES = {
+    "jax": dict(workload=jax_workload, consolidate=jax_consolidate,
+                cost_model=JaxCostModel, hardware=JAX_HARDWARE,
+                models=JAX_MODELS, solver=JaxSolver,
+                solver_config=JaxSolverConfig, simulated=JaxSimulated,
+                opwise=JaxOpWise),
+    "port": dict(workload=build_workload, consolidate=consolidate,
+                 cost_model=CostModel, hardware=HARDWARE,
+                 models=PAPER_MODELS, solver=EpochDPSolver,
+                 solver_config=SolverConfig, simulated=SimulatedProcessor,
+                 opwise=OpWiseSimulator)}
+
+
+def _sim_case(side, wname="w1", n=64, workers=3):
+    """A side's (graph, consolidated batch, cost-model factory, plan), as
+    ``tests/test_runtime.py`` sets them up."""
+    p = SIDES[side]
+    g, bindings, _ = p["workload"](wname, n, seed=0)
+    cons = p["consolidate"](g, bindings)
+
+    def cm(logical=False):
+        b = {nid: (cons.macro(nid).n_logical
+                   if g.nodes[nid].is_llm() or logical
+                   else cons.macro(nid).n_unique) for nid in g.nodes}
+        return p["cost_model"](g, p["hardware"]["h200"], p["models"],
+                               batch_sizes=b)
+
+    plan = p["solver"](g.llm_dag(), cm(),
+                       p["solver_config"](num_workers=workers)).solve()
+    return g, cons, cm, plan
+
+
+def _sim_runs(run, **case):
+    """``run(side, graph, cons, cm, plan)`` on both sides, whose plans
+    must agree; returns the port's report after holding it to JAX's:
+    makespan, records, coalescing and extras equal."""
+    reps = {}
+    for side in SIDES:
+        g, cons, cm, plan = _sim_case(side, **case)
+        reps[side] = (plan, run(side, g, cons, cm, plan))
+    (jplan, jrep), (plan, rep) = reps["jax"], reps["port"]
+    assert _epochs(plan) == _epochs(jplan)
+    assert rep.makespan == jrep.makespan
+    assert [dataclasses.astuple(r) for r in rep.records] == \
+        [dataclasses.astuple(r) for r in jrep.records]
+    assert rep.coalesce_stats == jrep.coalesce_stats
+    assert rep.extra == jrep.extra
+    return rep
+
+
+def test_simulator_completes_all_nodes():
+    def run(side, g, cons, cm, plan):
+        return SIDES[side]["simulated"](g, cm(), 3).run(cons, plan)
+
+    rep = _sim_runs(run)
+    g = _sim_case("port")[0]
+    assert {r.node for r in rep.records if r.kind == "llm"} == \
+        set(g.llm_nodes())
+    assert {r.node for r in rep.records if r.kind == "tool"} == \
+        set(g.tool_nodes())
+    assert rep.makespan > 0
+
+
+def test_coalescing_reduces_tool_work():
+    def with_c(side, g, cons, cm, plan):
+        return SIDES[side]["simulated"](g, cm(), 3).run(cons, plan)
+
+    def without(side, g, cons, cm, plan):
+        return SIDES[side]["simulated"](g, cm(logical=True), 3,
+                                        coalescing=False).run(cons, plan)
+
+    a, b = _sim_runs(with_c), _sim_runs(without)
+    assert a.coalesce_stats["tool_physical"] < \
+        b.coalesce_stats["tool_physical"]
+    assert a.makespan < b.makespan
+
+
+def test_opwise_slower_than_halo():
+    def halo(side, g, cons, cm, plan):
+        return SIDES[side]["simulated"](g, cm(), 3).run(cons, plan)
+
+    def opwise(side, g, cons, cm, plan):
+        return SIDES[side]["opwise"](g, cm(), 3).run(cons)
+
+    assert _sim_runs(opwise, n=256).makespan > \
+        _sim_runs(halo, n=256).makespan
+
+
+def test_simulated_worker_failure_completes():
+    def run(side, g, cons, cm, plan):
+        sp = SIDES[side]["simulated"](g, cm(), 3)
+        sp.sim.add_failure(1.0, 1)
+        return sp.run(cons, plan)
+
+    rep = _sim_runs(run)
+    assert {r.node for r in rep.records if r.kind == "llm"} == \
+        set(_sim_case("port")[0].llm_nodes())
+    assert "failed_worker_1" in rep.extra
+
+
+def test_launcher_sim_mode_prints_the_jax_launchers_summary():
+    """``--mode sim`` at 64 queries (no cap), with no card visible and the
+    JAX launcher's workers and hardware: the same summary as
+    ``python -m repro.launch.serve --mode sim``."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONHASHSEED="0", CUDA_VISIBLE_DEVICES="",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(root / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    args = ["--mode", "sim", "--workload", "w1", "--queries", "64",
+            "--workers", "3", "--hardware", "h200"]
+    out = {}
+    for pkg in ("repro", "repro_torch"):
+        res = subprocess.run([sys.executable, "-m", f"{pkg}.launch.serve",
+                              *args], env=env, capture_output=True,
+                             text=True, timeout=300, check=True)
+        text = res.stdout
+        assert "capping" not in text
+        out[pkg] = json.loads(text[text.index("{"):])
+    assert out["repro_torch"] == out["repro"]
+    assert out["repro_torch"]["queries"] == 64
