@@ -171,6 +171,51 @@ def nvidia_smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def card_setup(torch, np):
+    """What a run of these phases sets up first, here and in ``tools/``:
+    TF32 off, the kernels built from the sources (``build.library``), and
+    each kernel's plain version, where the port's modules call it, counted
+    in the returned ``{"n": calls}`` so that a phase can assert none ran
+    on its CUDA path.  Returns (``t``, which puts an array on the card in
+    a dtype, that count)."""
+    from repro_torch.engine.models import layers, rglru
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_decode_attention import ops as pd_ops
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    build.library()
+    plain_calls = {"n": 0}
+
+    def counted(fn):
+        def wrapper(*a, **kw):
+            plain_calls["n"] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    for mod, name in ((fa_ops, "flash_attention_ref"),
+                      (layers, "flash_attention_ref"),
+                      (pd_ops, "paged_decode_attention_ref"),
+                      (pd_ops, "fused_paged_decode_attention_ref"),
+                      (da_ops, "decode_attention_ref"),
+                      (lru_ops, "linear_scan_ref"),
+                      (rglru, "linear_scan_ref"),
+                      # the backward's (the training phases)
+                      (fa_ops, "flash_attention_bwd_ref"),
+                      (fa_ops, "flash_attention_lse_ref"),
+                      (lru_ops, "linear_scan_bwd_ref")):
+        setattr(mod, name, counted(getattr(mod, name)))
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dev, dtype)
+
+    return t, plain_calls
+
+
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, CUDA events."""
     for _ in range(warmup):
@@ -1657,8 +1702,7 @@ def kernels_at_grouping(torch, F, rng, arch, H, Hkv):
     ``kernels_paged_one_chunk``.  Returns {"flash": {...}, "paged":
     {...}, "arms": {"single": {...}, "blocked": {...}}}."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.paged_decode_attention import ops as pd_ops
     from repro_torch.kernels.paged_decode_attention.ref import (
         fused_paged_decode_attention_ref, paged_decode_attention_ref,
@@ -2570,8 +2614,9 @@ def swa_phases(torch, np, get_config, tokenizer, InferenceEngine,
     # the CUDA step against the plain step, with the router's top-k
     # selections that differ between the two (a near-tied choice that
     # bf16 rounding flips moves its row's logits past any rounding
-    # limit): asserted in bf16 over the rows where none differs, and on
-    # the float32 copy below
+    # limit): asserted in bf16 over the rows where none differs, which
+    # must be at least half of them (a fault that flips every row's
+    # routing fails), and on the float32 copy below
     parity = {"bf16": routed_parity(torch, moe, model, view, tok8)}
     del view, cache
 
@@ -2612,11 +2657,11 @@ def swa_phases(torch, np, get_config, tokenizer, InferenceEngine,
     log(f"{tag}.step_parity", depth=depth, rows=8,
         float32_layers=MIXTRAL_F32_LAYERS, arms=json.dumps(parity),
         tolerance="bf16 5e-2*scale over the rows where no top-k selection "
-        "differs, float32 1e-3*scale over all")
+        "differs (at least 4 of 8), float32 1e-3*scale over all")
     bf16, f32 = parity["bf16"], parity["float32"]
-    clean = bf16["max_abs_diff_over_those_rows"]
-    assert clean is None \
-        or float(clean) <= 5e-2 * float(bf16["logit_scale"]), bf16
+    assert bf16["rows_without_a_differing_selection"] >= 4, bf16
+    assert float(bf16["max_abs_diff_over_those_rows"]) \
+        <= 5e-2 * float(bf16["logit_scale"]), bf16
     assert float(f32["max_abs_diff"]) <= 1e-3 * float(f32["logit_scale"])
     S, n_dec = lens["long_a"], 8
     toks = torch.as_tensor([prompts["long_a"] + prompts["short_b"][1:9]],
@@ -2660,31 +2705,60 @@ def bf16_agreement(torch, out, ref):
 BF16_AGREEMENT = "every element 2e-3+8e-3*|ref|, RMS error 5e-2*ref RMS"
 
 
-def window_agreement(torch, out, ref, part):
-    """A bf16 output against its plain version over thousands of keys a
-    row, where the two round P to bf16 in another order and a value near
-    1-2 may differ by two of its ulps, more than ``bf16_agreement``'s
-    element rule allows: every element within the kernels' bf16 limit
-    3e-2, and the RMS error within 5% of the reference's RMS over all
-    rows and over ``part`` (a boolean mask of the leading axes: the rows
-    a window or a wrapped ring acts on), where a fault there shows.
-    Returns (max abs error, RMS error, RMS error over ``part``, the
-    reference's RMS there, whether it holds)."""
+def window_agreement(torch, out, ref, part, noise=None):
+    """``bf16_agreement`` with its RMS rule held over ``part`` too (a
+    boolean mask of the leading axes: the rows a window or a wrapped ring
+    acts on, where a fault there shows), and every element within 2e-3 +
+    8e-3*|ref| + 3.125e-2*``noise``.  ``noise`` (default 0) is
+    ``p_rounding_scale``: a kernel that rounds P to bf16 in another order
+    than its plain version differs from it by about 2^-8 of that root sum
+    of squares, and by at most 2^-7 of its terms' sum, which four times
+    2^-7 of it covers for up to 16 like terms (the causal prefill's first
+    rows, whose outputs of a few large values of V cancel).  Returns
+    {max_abs_err, rms_err, part_rms_err, part_ref_rms, limit_share (the
+    largest element error over its limit), worst (where that is), ok}."""
     d = (out.float() - ref.float()).abs()
     r = ref.float()
+    limit = 2e-3 + 8e-3 * r.abs()
+    if noise is not None:
+        limit = limit + 3.125e-2 * noise
+    share = d / limit
+    at = share.argmax()
+    worst = [int(i) for i in torch.unravel_index(at, share.shape)]
 
     def rms(x):
         return x.pow(2).mean().sqrt().item()
 
-    rms_err, rms_ref = rms(d), rms(r)
-    p_err, p_ref = rms(d[part]), rms(r[part])
-    ok = d.max().item() <= 3e-2 and rms_err <= 5e-2 * rms_ref \
-        and p_err <= 5e-2 * p_ref
-    return d.max().item(), rms_err, p_err, p_ref, ok
+    res = {"max_abs_err": d.max().item(), "rms_err": rms(d),
+           "part_rms_err": rms(d[part]), "part_ref_rms": rms(r[part]),
+           "limit_share": share.flatten()[at].item(),
+           "worst": (f"index {worst}: err {d.flatten()[at].item():.3e}, "
+                     f"|ref| {r.abs().flatten()[at].item():.3e}" + (
+                         "" if noise is None else
+                         f", noise {noise.flatten()[at].item():.3e}"))}
+    res["ok"] = res["limit_share"] <= 1 \
+        and res["rms_err"] <= 5e-2 * rms(r) \
+        and res["part_rms_err"] <= 5e-2 * res["part_ref_rms"]
+    return res
 
 
-WINDOW_AGREEMENT = ("every element 3e-2, RMS error 5e-2*ref RMS over all "
-                    "rows and over the rows the window acts on")
+def window_rule(noise):
+    return ("every element 2e-3+8e-3*|ref|" + (
+        "+3.125e-2*sqrt(sum_j p_j^2 v_j^2)" if noise else "") +
+        ", RMS error 5e-2*ref RMS over all rows and over the rows the "
+        "window acts on")
+
+
+def p_rounding_scale(torch, q, k, v, **mask):
+    """(B,Sq,H,Dh) f32: sqrt(sum_j p_j^2 v_j^2) over the plain version's
+    probabilities p and V, each output element's scale of the difference
+    that rounding P to bf16 in another order leaves in PV.  ``mask``: the
+    positions, causal and window, as ``flash_attention_ref`` takes them."""
+    from repro_torch.kernels.flash_attention.ref import _probs
+    _, p = _probs(q, k, mask["q_positions"], mask["kv_positions"],
+                  mask.get("causal", True), mask.get("window", 0))
+    s = torch.einsum("bhgqk,bkhd->bqhgd", p.square(), v.float().square())
+    return s.sqrt().reshape(q.shape)
 
 
 def last_tile_dropped(torch, kvp, tile=64):
@@ -2705,10 +2779,12 @@ def kernels_swa(torch, F, t, rng, fa_ops, da_ops, flash_attention_ref,
     the tensor cores; the decode kernel at a step of B=8 rows over a
     4096-slot ring, four of whose rows have wrapped (the others hold 120
     to 399 positions and empty slots), split.  Each is held by
-    ``window_agreement`` to its plain version, with a control that must
-    fail it (the window ignored; the wrapped rings' positions read as
-    slots 0..T-1), and timed beside the plain version and SDPA.  Returns
-    {"prefill": numbers, "ring": numbers}."""
+    ``window_agreement`` to its plain version (flash with P's rounding
+    noise, ``p_rounding_scale``; the ring at ``bf16_agreement``'s element
+    rule), with two controls that must fail it (each row's last 64-key tile dropped; the window ignored,
+    or the wrapped rings' positions read as slots 0..T-1), and timed
+    beside the plain version and SDPA.  Returns {"prefill": numbers,
+    "ring": numbers}."""
     import numpy as np
     dev = torch.device("cuda")
     H, Hkv, Dh, W = 48, 8, 128, 4096
@@ -2741,15 +2817,24 @@ def kernels_swa(torch, F, t, rng, fa_ops, da_ops, flash_attention_ref,
     ref = plain()
     past = torch.zeros(B, S, dtype=torch.bool, device=dev)
     past[:, W:] = True                            # rows the window cuts
-    err, rms_err, p_err, p_ref, ok = window_agreement(torch, run(), ref,
-                                                      past)
+    noise = p_rounding_scale(torch, q, k, v, q_positions=pos,
+                             kv_positions=pos, window=W)
+    a = window_agreement(torch, run(), ref, past, noise)
     assert fa_ops.tensor_core_launches == n_tc + 1, \
         "windowed flash missed the tensor cores"
-    assert ok, f"windowed flash: {err}, RMS {rms_err}, {p_err}/{p_ref}"
-    c_err, _, c_rms, _, c_ok = window_agreement(
-        torch, flash_attention_ref(q, k, v, q_positions=pos,
-                                   kv_positions=pos, window=0), ref, past)
-    assert not c_ok, "the check cannot see the window"
+    assert a["ok"], f"windowed flash: {a}"
+    controls = {}
+    for name, kvp, w in (("window_ignored", pos, 0),
+                         ("last_tile_dropped", last_tile_dropped(torch, pos),
+                          W)):
+        c = window_agreement(torch, flash_attention_ref(
+            q, k, v, q_positions=pos, kv_positions=kvp, window=w), ref,
+            past, noise)
+        assert not c["ok"], f"the check cannot see {name}: {c}"
+        controls[f"control_{name}"] = (
+            f"max {c['max_abs_err']:.3e} ({c['limit_share']:.2f} of its "
+            f"limit), RMS past the window {c['part_rms_err']:.3e}: fails")
+    del noise
     sdpa_err = (library().transpose(1, 2).float() - ref.float()
                 ).abs().max().item()
     del ref
@@ -2758,18 +2843,20 @@ def kernels_swa(torch, F, t, rng, fa_ops, da_ops, flash_attention_ref,
     b_ms, b_by = bound(nbytes, 4 * Dh * H * pairs, "bfloat16")
     r = {"shape": f"B={B},S={S},H={H},Hkv={Hkv},G={H // Hkv},Dh={Dh},"
                   f"causal,window={W},bf16",
-         "max_abs_err": err, "ms": time_ms(torch, run, iters=10),
+         "max_abs_err": a["max_abs_err"],
+         "ms": time_ms(torch, run, iters=10),
          "device_ms": profile_calls(torch, run, 10)[1],
          "plain_ms": time_ms(torch, plain, iters=3, warmup=1),
          "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": time_ms(torch, library, iters=10)}
     res["prefill"] = r
-    log("kernels.flash_swa", shape=r["shape"], max_abs_err=f"{err:.3e}",
-        rms_err=f"{rms_err:.3e}", rows_past_window_rms_err=f"{p_err:.3e}",
-        rows_past_window_ref_rms=f"{p_ref:.3e}", tolerance=WINDOW_AGREEMENT,
-        sdpa_err=f"{sdpa_err:.3e}",
-        control_window_ignored=f"max {c_err:.3e}, RMS past the window "
-        f"{c_rms:.3e}: fails",
+    log("kernels.flash_swa", shape=r["shape"],
+        max_abs_err=f"{a['max_abs_err']:.3e}",
+        element_limit_share=f"{a['limit_share']:.3f}",
+        worst_element=json.dumps(a["worst"]), rms_err=f"{a['rms_err']:.3e}",
+        rows_past_window_rms_err=f"{a['part_rms_err']:.3e}",
+        rows_past_window_ref_rms=f"{a['part_ref_rms']:.3e}",
+        tolerance=window_rule(True), sdpa_err=f"{sdpa_err:.3e}", **controls,
         ms=f"{r['ms']:.4f}", device_ms=f"{r['device_ms']:.4f}",
         plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['library_ms']:.4f}",
         bound_ms=f"{b_ms:.5f}", bound_by=b_by, pairs=pairs, bytes=nbytes,
@@ -2810,34 +2897,43 @@ def kernels_swa(torch, F, t, rng, fa_ops, da_ops, flash_attention_ref,
     ref = plain()
     wrapped_d = torch.as_tensor(wrapped).to(dev)
     s0, n0 = da_ops.split_launches, da_ops.launches
-    err, rms_err, p_err, p_ref, ok = window_agreement(torch, run(), ref,
-                                                      wrapped_d)
+    a = window_agreement(torch, run(), ref, wrapped_d)
     assert da_ops.split_launches - s0 == da_ops.launches - n0 == 1, \
         "the ring's decode launch was not split"
-    assert ok, f"decode ring: {err}, RMS {rms_err}, {p_err}/{p_ref}"
-    c_err, _, c_rms, _, c_ok = window_agreement(
-        torch, decode_attention_ref(q, k, v, q_positions=qp_d,
-                                    kv_positions=slots_d, window=W), ref,
-        wrapped_d)
-    assert not c_ok, "the check cannot see the ring's positions"
+    assert a["ok"], f"decode ring: {a}"
+    controls = {}
+    for name, kvp in (("positions_as_slots", slots_d),
+                      ("last_tile_dropped", last_tile_dropped(torch, kp_d))):
+        c = window_agreement(torch, decode_attention_ref(
+            q, k, v, q_positions=qp_d, kv_positions=kvp, window=W), ref,
+            wrapped_d)
+        assert not c["ok"], f"the check cannot see {name}: {c}"
+        controls[f"control_{name}"] = (
+            f"max {c['max_abs_err']:.3e} ({c['limit_share']:.2f} of its "
+            f"limit), RMS over the wrapped rows {c['part_rms_err']:.3e}: "
+            "fails")
     n_keys = int(keep.sum().item())
     nbytes = 2 * q.numel() * 2 + 2 * n_keys * Hkv * Dh * 2 + 2 * B * H * 4 \
         + 4 * (kp_d.numel() + B)
     b_ms, b_by = bound(nbytes, 4 * Dh * H * n_keys, "bfloat16")
     r = {"shape": f"B={B},T={T},H={H},Hkv={Hkv},G={H // Hkv},Dh={Dh},"
                   f"window={W},bf16,positions={','.join(map(str, qp))}",
-         "max_abs_err": err, "ms": time_ms(torch, run, iters=48),
+         "max_abs_err": a["max_abs_err"],
+         "ms": time_ms(torch, run, iters=48),
          "device_ms": profile_calls(torch, run, 48)[1],
          "plain_ms": time_ms(torch, plain, iters=16),
          "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": time_ms(torch, library, iters=48)}
     res["ring"] = r
     log("kernels.decode_ring", shape=r["shape"], wrapped_rows=int(
-        wrapped.sum()), max_abs_err=f"{err:.3e}", rms_err=f"{rms_err:.3e}",
-        wrapped_rows_rms_err=f"{p_err:.3e}",
-        wrapped_rows_ref_rms=f"{p_ref:.3e}", tolerance=WINDOW_AGREEMENT,
-        control_positions_as_slots=f"max {c_err:.3e}, RMS over the "
-        f"wrapped rows {c_rms:.3e}: fails", ms=f"{r['ms']:.4f}", device_ms=f"{r['device_ms']:.4f}",
+        wrapped.sum()), max_abs_err=f"{a['max_abs_err']:.3e}",
+        rms_err=f"{a['rms_err']:.3e}",
+        wrapped_rows_rms_err=f"{a['part_rms_err']:.3e}",
+        wrapped_rows_ref_rms=f"{a['part_ref_rms']:.3e}",
+        tolerance=window_rule(False),
+        element_limit_share=f"{a['limit_share']:.3f}",
+        worst_element=json.dumps(a["worst"]), **controls,
+        ms=f"{r['ms']:.4f}", device_ms=f"{r['device_ms']:.4f}",
         plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['library_ms']:.4f}",
         bound_ms=f"{b_ms:.5f}", bound_by=b_by, valid_keys=n_keys,
         bytes=nbytes)
@@ -3995,7 +4091,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.engine import tokenizer
     from repro_torch.engine.engine import InferenceEngine
-    from repro_torch.engine.models import build_model, layers, moe, rglru
+    from repro_torch.engine.models import build_model, layers, moe
     from repro_torch.kernels import build
     from repro_torch.kernels.common import NEG_INF
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -4006,8 +4102,7 @@ def main() -> int:
         flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
     from repro_torch.kernels.paged_decode_attention import ops as pd_ops
     from repro_torch.kernels.paged_decode_attention.ref import (
-        fused_paged_decode_attention_ref, paged_decode_attention_ref,
-        scatter_append_ref)
+        paged_decode_attention_ref, scatter_append_ref)
     from repro_torch.kernels.rglru_scan import ops as lru_ops
     from repro_torch.kernels.rglru_scan.ref import (linear_scan_bwd_ref,
                                                    linear_scan_ref)
@@ -4015,20 +4110,15 @@ def main() -> int:
     from repro_torch.kernels.shared_prefix_attention.ref import (
         prefix_attention_ref, shared_prefix_attention_ref)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
 
     # ------------------------------------------------------ 1. environment
     t0 = time.perf_counter()
-    build.library()
+    t, plain_calls = card_setup(torch, np)
     log("env", card=json.dumps(smi), torch=torch.__version__,
         cuda=torch.version.cuda, build_s=f"{build.build_seconds:.3f}",
         load_s=f"{time.perf_counter() - t0:.3f}")
-
-    def t(a, dtype):
-        return torch.as_tensor(np.asarray(a, np.float32)).to(dev, dtype)
 
     # ---------------------------------------------------------- 2. kernels
     # hostile paged layout: shuffled pool, rows 0/1 alias their first two
@@ -4194,29 +4284,8 @@ def main() -> int:
     assert n_shared % eng.page_size != 0
     max_new = 32
 
-    # count the plain versions: none may run on the CUDA path
-    plain_calls = {"n": 0}
-
-    def counted(fn):
-        def wrapper(*a, **kw):
-            plain_calls["n"] += 1
-            return fn(*a, **kw)
-        return wrapper
-
-    fa_ops.flash_attention_ref = counted(fa_ops.flash_attention_ref)
-    layers.flash_attention_ref = counted(layers.flash_attention_ref)
-    pd_ops.paged_decode_attention_ref = counted(
-        pd_ops.paged_decode_attention_ref)
-    pd_ops.fused_paged_decode_attention_ref = counted(
-        pd_ops.fused_paged_decode_attention_ref)
-    da_ops.decode_attention_ref = counted(da_ops.decode_attention_ref)
-    lru_ops.linear_scan_ref = counted(lru_ops.linear_scan_ref)
-    rglru.linear_scan_ref = counted(rglru.linear_scan_ref)
-    # the backward's plain versions (the training phases)
-    fa_ops.flash_attention_bwd_ref = counted(fa_ops.flash_attention_bwd_ref)
-    fa_ops.flash_attention_lse_ref = counted(fa_ops.flash_attention_lse_ref)
-    lru_ops.linear_scan_bwd_ref = counted(lru_ops.linear_scan_bwd_ref)
-
+    # the plain versions are counted (card_setup): none may run on the
+    # CUDA path
     outs, launches, step_s, admit_s, run_s = serve_checked(
         torch, eng, prompts, max_new, ENGINE_REQUESTS, fa_ops, pd_ops,
         plain_calls)

@@ -330,9 +330,10 @@ class TransformerLM(nn.Module):
         Each layer writes the new token's K/V at slot ``length % T`` IN
         PLACE and attends over the slots holding positions ``<= length``
         (under ``impl="cuda"`` in the decode_attention kernel): slot s
-        holds position s, or, in a sliding-window ring, the newest
-        position congruent to s (``_kv_slot_positions``).  Returns (logits
-        (B,Vpad), a dict of the same tensors with ``length + 1``).
+        holds the newest position congruent to s (``_kv_slot_positions``),
+        which is s itself while ``length < T``, as in every full-attention
+        cache.  Returns (logits (B,Vpad), a dict of the same tensors with
+        ``length + 1``).
         """
         cfg = self.cfg
         impl = impl or cfg.attention_impl
@@ -340,13 +341,7 @@ class TransformerLM(nn.Module):
         T = cache["k"].shape[2]
         pos = cache["length"].to(torch.int32)
         slot = torch.remainder(pos, T).long()
-        if cfg.swa_window:
-            kv_pos = self._kv_slot_positions(pos, T).contiguous()
-        else:
-            t_idx = torch.arange(T, dtype=torch.int32,
-                                 device=token.device)[None]
-            kv_pos = torch.where(t_idx <= pos[:, None], t_idx, -1).to(
-                torch.int32).contiguous()
+        kv_pos = self._kv_slot_positions(pos, T).contiguous()
         batch_ix = torch.arange(B, device=token.device)
         x = self.embed[token][:, None, :]                    # (B,1,D)
         for i, blk in enumerate(self.blocks):

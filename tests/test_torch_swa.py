@@ -361,6 +361,15 @@ def test_full_attention_decode_step_is_bitwise_unchanged(arch):
     cache = {"k": torch.nn.functional.pad(cache["k"], pad),
              "v": torch.nn.functional.pad(cache["v"], pad),
              "length": torch.tensor([9, 4, 7], dtype=torch.int32)}
+    # one kv_pos for both caches: the ring's positions are the old
+    # ``t_idx <= pos`` form at every length a full cache holds (and -1)
+    from repro_torch.engine.models import layers as L
+    T = cache["k"].shape[2]
+    pos = torch.arange(-1, T, dtype=torch.int32)
+    t_idx = torch.arange(T, dtype=torch.int32)[None]
+    assert torch.equal(L.ring_slot_positions(pos, T),
+                       torch.where(t_idx <= pos[:, None], t_idx, -1).to(
+                           torch.int32))
     ref = {k: v.clone() for k, v in cache.items()}
     for t in (11, 12, 13):
         tok = torch.tensor([t, t + 1, t + 2])

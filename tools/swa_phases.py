@@ -37,7 +37,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.engine import tokenizer
     from repro_torch.engine.engine import InferenceEngine
-    from repro_torch.engine.models import build_model, layers
+    from repro_torch.engine.models import build_model
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -45,31 +45,10 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.paged_decode_attention import ops as pd_ops
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     print(cs.nvidia_smi_line())
-    build.library()
+    t, plain_calls = cs.card_setup(torch, np)
     print(f"build_s {build.build_seconds:.3f}")
-    dev = torch.device("cuda")
-
-    def t(a, dtype):
-        return torch.as_tensor(np.asarray(a, np.float32)).to(dev, dtype)
-
-    plain_calls = {"n": 0}
-
-    def counted(fn):
-        def wrapper(*a, **kw):
-            plain_calls["n"] += 1
-            return fn(*a, **kw)
-        return wrapper
-
-    for mod, name in ((fa_ops, "flash_attention_ref"),
-                      (layers, "flash_attention_ref"),
-                      (pd_ops, "paged_decode_attention_ref"),
-                      (pd_ops, "fused_paged_decode_attention_ref"),
-                      (da_ops, "decode_attention_ref")):
-        setattr(mod, name, counted(getattr(mod, name)))
 
     which = sys.argv[1:] or ["kernels", "deepseek", "mixtral"]
     out = {}

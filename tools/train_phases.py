@@ -32,7 +32,7 @@ def main() -> int:
 
     import chip_smoke as cs
     from repro_torch.configs import get_config
-    from repro_torch.engine.models import build_model, layers, rglru
+    from repro_torch.engine.models import build_model
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
@@ -41,28 +41,10 @@ def main() -> int:
     from repro_torch.kernels.rglru_scan.ref import (linear_scan_bwd_ref,
                                                    linear_scan_ref)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     print(cs.nvidia_smi_line())
-    build.library()
+    _, plain_calls = cs.card_setup(torch, np)
     print(f"build_s {build.build_seconds:.3f}")
-    plain_calls = {"n": 0}
-
-    def counted(fn):
-        def wrapper(*a, **kw):
-            plain_calls["n"] += 1
-            return fn(*a, **kw)
-        return wrapper
-
-    for mod, name in ((fa_ops, "flash_attention_ref"),
-                      (layers, "flash_attention_ref"),
-                      (lru_ops, "linear_scan_ref"),
-                      (rglru, "linear_scan_ref"),
-                      (fa_ops, "flash_attention_bwd_ref"),
-                      (fa_ops, "flash_attention_lse_ref"),
-                      (lru_ops, "linear_scan_bwd_ref")):
-        setattr(mod, name, counted(getattr(mod, name)))
 
     which = sys.argv[1:] or ["kernels", "train"]
     if "kernels" in which:
