@@ -109,7 +109,22 @@ each:
    encoder, self- and cross-attention, decode for both, launch counts
    asserted; its profile; step parity; batch invariance of the 300-frame
    request, float32 asserted);
-11. training, each model freed before the next: the flash backward
+11. distribution (``repro_torch.distribution``): the sharded decode at
+   deepseek-67b's attention width (64 query and 8 KV heads of 128, bf16,
+   B=8 over T=32768 slots), with and without a 4096-key window, over a
+   one-rank NCCL group (bitwise the unsharded kernel) and over four
+   processes sharing the card in a gloo group whose collectives take
+   CUDA tensors, each launching the decode kernel on its 8192 slots,
+   held to the unsharded kernel and the plain version (``bf16_agreement``)
+   with rows whose keys end in the first shard, a window across shards
+   and rows with no key anywhere (0), a dropped rank's keys as the
+   control that must fail; the compressed all-reduce on the same ranks
+   (one qwen3-1.7b layer of gradients each, at scales 0.01 to 300):
+   within one shared quantization step of the mean, two steps of error
+   feedback below twice one step's error, the JAX recipe (each rank's
+   own scale, the sum dequantized by the largest) as the control that
+   must fail;
+12. training, each model freed before the next: the flash backward
    (``[kernels.flash_bwd]``) at qwen3's, the hybrid's (also with a
    128-key window) and whisper's encoder and cross-attention shapes, f32
    and bf16 against its plain version, the forward's log-sum-exp, a row
@@ -124,11 +139,13 @@ each:
    ``[train.grad_parity]`` (kernels against plain versions on a float32
    copy cut to 4 layers, a control that drops dK); ``[train.checkpoint]``
    (a resume at step 10 against the continuous run, a control with the
-   moments lost); ``[train.hybrid]`` (recurrentgemma-2b, 3 steps, the
+   moments lost; ``[distribution.checkpoint]``: the saved state loaded
+   with placements on a one-rank mesh, bitwise the plain load);
+   ``[train.hybrid]`` (recurrentgemma-2b, 3 steps, the
    flash and scan backward counted, every flash backward on the tensor
    cores; ``.profile`` one step) and ``[train.audio]`` (whisper-tiny,
    3 steps over 1500 frames: causal, non-causal and cross backward);
-12. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
+13. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
    single and blocked arms as entries of their own; the two backward
    kernels last), the card's ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -3958,6 +3975,9 @@ def train_phases(torch, np, get_config, build_model, fa_ops, lru_ops,
             ctrl.append(float(met["loss"]))
         assert ctrl[1] != cont_hist[11]["loss"], \
             "the check cannot see lost optimizer moments"
+        # the same state placed on a one-rank mesh
+        distribution_checkpoint(
+            torch, str(pathlib.Path(d) / "step_000000010"), cfgc, like)
         del model, params, like, loaded, opt, step_fn
     log("train.checkpoint", model="qwen3-1.7b bf16 cut to 4 layers (full "
         "width)", saved_at=10, resumed_steps="11-12",
@@ -4077,6 +4097,325 @@ def train_phases(torch, np, get_config, build_model, fa_ops, lru_ops,
     del model, opt, step_fn, frames
     free_cuda(torch)
     return out_counts
+
+
+# ------------------------------------------------------------ distribution
+# the sharded decode at deepseek-67b's attention width (64 query and 8 KV
+# heads of 128), bf16, B=8 over T=32768 slots (1.07 GB of K and V), the
+# context the JAX docstring motivates at one card's size; four ranks hold
+# a quarter of T each
+DIST_B, DIST_T, DIST_H, DIST_HKV, DIST_DH = 8, 32768, 64, 8, 128
+DIST_WORLD = 4
+DIST_WINDOWS = (0, 4096)
+# each rank's gradients are one qwen3-1.7b layer's, at its own scale
+DIST_GRAD_SCALES = (1.0, 30.0, 0.01, 300.0)
+
+
+def dist_decode_inputs(torch, world=DIST_WORLD):
+    """q, k, v (bf16) and positions on the card from a seeded generator,
+    the same in every process.  Rows: 0 full; 1 full with every third slot
+    empty; 2 and 3 whose valid keys end in the first shard (at 5000 and at
+    its last slot); 4 whose 4096-key window crosses from the third shard
+    into the fourth; 5 ending at the third shard's first slot; 6 (q
+    position -1) and 7 (every slot empty) with no valid key anywhere."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    B, T, H, Hkv, Dh = DIST_B, DIST_T, DIST_H, DIST_HKV, DIST_DH
+    S = T // world
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, k, v = randn(B, H, Dh), randn(B, T, Hkv, Dh), randn(B, T, Hkv, Dh)
+    qp = torch.tensor([T - 1, T - 1, 5000, S - 1, 3 * S + 1000, 2 * S, -1,
+                       T - 1], dtype=torch.int32, device=dev)
+    kp = torch.arange(T, dtype=torch.int32, device=dev).repeat(B, 1)
+    kp[1, ::3] = -1
+    kp[7] = -1
+    return q, k, v, qp, kp
+
+
+def dist_rank_grads(torch, rank):
+    """Rank ``rank``'s gradient dict: one full-width qwen3-1.7b layer's
+    parameter shapes, f32, from its own seed and at its own scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine.models import build_model
+    sd = build_model(get_config("qwen3-1.7b"), device="meta").state_dict()
+    g = torch.Generator(device="cuda").manual_seed(100 + rank)
+    return {n: torch.randn(t.shape, generator=g, device="cuda")
+            * DIST_GRAD_SCALES[rank]
+            for n, t in sd.items() if n.startswith("blocks.0.")}
+
+
+def dist_rank(rank, world, store, out_dir):
+    """One of the ``[distribution.*]`` phase's ranks, in its own process
+    sharing the one card: a gloo group whose collectives take the CUDA
+    tensors (gloo copies them through the host: the transport these
+    ranks use, chosen because NCCL takes one process per card).  The
+    parent built the kernels and checks that this rank built none; it runs
+    the sharded decode on its quarter of T (and once more with its keys
+    dropped, the control), and the compressed all-reduce of its own
+    gradients, and writes what it saw to ``out_dir/rank_<rank>.pt``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distribution.collectives import (
+        compressed_psum_grads, sharded_decode_attention)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.training.grad_compress import (dequantize,
+                                                    init_error_state,
+                                                    quantize)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        _, plain_calls = card_setup(torch, np)
+        res = {"built_here_s": build.build_seconds}
+        q, k, v, qp, kp = dist_decode_inputs(torch, world)
+        S = DIST_T // world
+        k, v, kp = (x[:, rank * S:(rank + 1) * S].contiguous()
+                    for x in (k, v, kp))
+        torch.cuda.synchronize()
+        da_ops.reset_counts()
+        plain0 = plain_calls["n"]
+        for w in DIST_WINDOWS:
+            dist.barrier()
+            t0 = time.perf_counter()
+            out = sharded_decode_attention(q, k, v, qp, kp, window=w)
+            torch.cuda.synchronize()
+            res[f"call_ms_w{w}"] = 1e3 * (time.perf_counter() - t0)
+            res[f"out_w{w}"] = out.cpu()
+        res["launches"] = da_ops.launches
+        res["split_launches"] = da_ops.split_launches
+        res["plain_calls"] = plain_calls["n"] - plain0
+        # control: this run with the last rank's keys dropped from the sums
+        kp_drop = torch.full_like(kp, -1) if rank == world - 1 else kp
+        res["dropped_w0"] = sharded_decode_attention(q, k, v, qp,
+                                                     kp_drop).cpu()
+        del k, v
+
+        # compressed all-reduce: one qwen3-1.7b layer per rank
+        every = [dist_rank_grads(torch, r) for r in range(world)]
+        grads = every[rank]
+        true = {n: sum(g[n] for g in every) / world for n in grads}
+        step = {n: max(g[n].abs().max().item() for g in every) / 127.0
+                for n in grads}
+        del every
+        dist.barrier()
+        t0 = time.perf_counter()
+        mean1, err1 = compressed_psum_grads(grads, init_error_state(grads))
+        torch.cuda.synchronize()
+        res["compressed_ms"] = 1e3 * (time.perf_counter() - t0)
+        mean2, _ = compressed_psum_grads(grads, err1)
+        res["mean_over_step"] = max(
+            ((mean1[n] - true[n]).abs().max() / step[n]).item()
+            for n in grads)
+        # the JAX recipe: each rank's own scale, the sum dequantized by
+        # the largest (ROADMAP Queue 3 item 12)
+        recipe = 0.0
+        for n, gr in grads.items():
+            qn, s = quantize(gr)
+            q32 = qn.to(torch.int32)
+            dist.all_reduce(q32)
+            s_max = s.clone()
+            dist.all_reduce(s_max, op=dist.ReduceOp.MAX)
+            got = dequantize(q32, s_max) / world
+            recipe = max(recipe,
+                         ((got - true[n]).abs().max() / s_max).item())
+        res["recipe_over_largest_step"] = recipe
+
+        def norm(d):
+            return sum(float(x.double().pow(2).sum()) for x in d.values()
+                       ) ** 0.5
+
+        res["ef_two_steps"] = norm({n: mean1[n] + mean2[n] - 2 * true[n]
+                                    for n in grads})
+        res["no_ef_two_steps"] = norm({n: 2 * (mean1[n] - true[n])
+                                       for n in grads})
+        res["grad_elems"] = sum(x.numel() for x in grads.values())
+        torch.save(res, pathlib.Path(out_dir) / f"rank_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def one_rank_group(torch):
+    """A world of one process on the card (NCCL), over a FileStore."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(pathlib.Path(tmp) / "store"), 1), rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def distribution_phases(torch, da_ops, decode_attention_ref, plain_calls):
+    """``[distribution.sharded_decode]`` at world size 1 (an NCCL group of
+    this process) and over four gloo ranks sharing the card, and
+    ``[distribution.compressed]`` on those ranks.  Returns the decode
+    kernel's launches and the phase's times for the kernels line."""
+    from repro_torch.distribution.collectives import sharded_decode_attention
+    from repro_torch.launch.mesh import make_debug_mesh
+    t_phase = time.perf_counter()
+    q, k, v, qp, kp = dist_decode_inputs(torch)
+    pos = dict(q_positions=qp, kv_positions=kp)
+    kernel = {w: da_ops.decode_attention(q, k, v, window=w, **pos)
+              for w in DIST_WINDOWS}
+    plain = {w: decode_attention_ref(q, k, v, window=w, **pos)
+             for w in DIST_WINDOWS}
+    for w in DIST_WINDOWS:
+        ok = bf16_agreement(torch, kernel[w], plain[w])[3]
+        assert ok and torch.all(kernel[w][6:] == 0), \
+            f"unsharded kernel vs plain, window {w}"
+
+    # world size 1: the merge of one part is out * l / l, which rounds
+    # back to out's bf16 value, so it must equal the kernel bitwise
+    with one_rank_group(torch):
+        mesh = make_debug_mesh()
+        group = mesh.get_group("model")
+        da_ops.reset_counts()
+        plain0 = plain_calls["n"]
+        one = {w: sharded_decode_attention(q, k, v, qp, kp, group=group,
+                                           window=w)
+               for w in DIST_WINDOWS}
+        torch.cuda.synchronize()
+        w1_launches = da_ops.launches
+        assert w1_launches == len(DIST_WINDOWS) and \
+            plain_calls["n"] == plain0, (w1_launches, plain_calls["n"])
+        for w in DIST_WINDOWS:
+            assert torch.equal(one[w], kernel[w]), f"world 1, window {w}"
+        w1_ms = time_ms(torch, lambda: sharded_decode_attention(
+            q, k, v, qp, kp, group=group), iters=20)
+        mesh_shape = tuple(mesh.shape)
+    kernel_ms = time_ms(torch, lambda: da_ops.decode_attention(
+        q, k, v, **pos), iters=20)
+    # the same function as one PyTorch call, timed beside it
+    import torch.nn.functional as F
+    qs, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    mask = ((kp >= 0) & (kp <= qp[:, None]))[:, None, None, :]
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, kt, vt, attn_mask=mask, enable_gqa=True), iters=20)
+    valid = int(((kp >= 0) & (kp <= qp[:, None])).sum().item())
+    nbytes = 2 * q.numel() * 2 + 2 * valid * DIST_HKV * DIST_DH * 2 \
+        + 4 * (kp.numel() + DIST_B)
+    b_ms, b_by = bound(nbytes, 4 * DIST_DH * DIST_H * valid, "bfloat16")
+    log("distribution.sharded_decode", world=1, backend="nccl",
+        mesh=json.dumps(mesh_shape),
+        shape=f"B={DIST_B},T={DIST_T},H={DIST_H},Hkv={DIST_HKV},"
+        f"Dh={DIST_DH},bf16", windows=json.dumps(DIST_WINDOWS),
+        vs_unsharded_kernel="bitwise", launches=w1_launches, plain_calls=0,
+        kernel_ms=f"{kernel_ms:.4f}", sharded_ms=f"{w1_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=b_by, valid_keys=valid)
+
+    # four ranks, spawned once the kernels are built (card_setup), so no
+    # rank runs nvcc
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(dist_rank,
+                                 args=(DIST_WORLD, f"{tmp}/store", tmp),
+                                 nprocs=DIST_WORLD, join=False,
+                                 start_method="spawn")
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > 240:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError("distribution: the ranks took over 240 s")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(pathlib.Path(tmp) / f"rank_{r}.pt")
+                 for r in range(DIST_WORLD)]
+    kern = {w: kernel[w].cpu() for w in DIST_WINDOWS}
+    pl = {w: plain[w].cpu() for w in DIST_WINDOWS}
+    worst = {}
+    for r, res in enumerate(ranks):
+        assert res["built_here_s"] == 0.0, f"rank {r} built the kernels"
+        assert res["launches"] == len(DIST_WINDOWS) and \
+            res["plain_calls"] == 0, (r, res["launches"], res["plain_calls"])
+        for w in DIST_WINDOWS:
+            out = res[f"out_w{w}"]
+            assert torch.equal(out, ranks[0][f"out_w{w}"]), (r, w)
+            assert torch.all(out[6:] == 0), f"no-key rows, rank {r}"
+            for name, ref in (("kernel", kern[w]), ("plain", pl[w])):
+                err, rms, ref_rms, ok = bf16_agreement(torch, out, ref)
+                assert ok, (r, w, name, err, rms, ref_rms)
+                worst[f"{name}_w{w}"] = max(worst.get(f"{name}_w{w}", 0.0),
+                                            err)
+    d_err, d_rms, d_ref, d_ok = bf16_agreement(
+        torch, ranks[0]["dropped_w0"], kern[0])
+    assert not d_ok, "the check cannot see a rank's keys dropped"
+    log("distribution.sharded_decode", world=DIST_WORLD,
+        transport="gloo with CUDA tensors (4 processes share the card)",
+        rule=BF16_AGREEMENT, rows="full, full with holes, ends in shard 0 "
+        "(x2), window across shards 2-3, ends at shard 2's first slot, no "
+        "key (q position -1), no key (all slots empty)",
+        max_abs_err=json.dumps({k: float(f"{e:.4e}")
+                                for k, e in worst.items()}),
+        no_key_rows="0", ranks_equal="bitwise",
+        launches_per_rank=json.dumps([r["launches"] for r in ranks]),
+        split_launches_per_rank=json.dumps(
+            [r["split_launches"] for r in ranks]),
+        plain_calls=0, rank_call_ms=json.dumps(
+            [[round(r[f"call_ms_w{w}"], 3) for w in DIST_WINDOWS]
+             for r in ranks]),
+        spawn_s=f"{spawn_s:.3f}",
+        control_last_rank_dropped=f"max_abs_err {d_err:.3e}, rms_err "
+        f"{d_rms:.3e} of ref rms {d_ref:.3e}: fails")
+
+    for r, res in enumerate(ranks):
+        assert res["mean_over_step"] <= 1.0, (r, res["mean_over_step"])
+        assert res["recipe_over_largest_step"] > 1.0, \
+            (r, res["recipe_over_largest_step"])
+        assert res["ef_two_steps"] < res["no_ef_two_steps"], r
+    log("distribution.compressed", world=DIST_WORLD,
+        grads="one qwen3-1.7b layer per rank (f32, "
+        f"{ranks[0]['grad_elems']} values), scales "
+        f"{json.dumps(DIST_GRAD_SCALES)}",
+        mean_err_over_shared_step=f"{max(r['mean_over_step'] for r in ranks):.4f}",
+        limit=1.0, two_steps_err_norm=f"{ranks[0]['ef_two_steps']:.4e}",
+        without_feedback=f"{ranks[0]['no_ef_two_steps']:.4e}",
+        compressed_ms=json.dumps([round(r["compressed_ms"], 3)
+                                  for r in ranks]),
+        control_jax_recipe=f"err {ranks[0]['recipe_over_largest_step']:.3f}"
+        " steps of the largest scale: fails",
+        phase_s=f"{time.perf_counter() - t_phase:.3f}")
+    return {"launches": w1_launches + sum(r["launches"] for r in ranks),
+            "world1_launches": w1_launches,
+            "rank_launches": [r["launches"] for r in ranks],
+            "kernel_ms": kernel_ms, "sharded_world1_ms": w1_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def distribution_checkpoint(torch, ckpt_dir, cfg, like):
+    """``[distribution.checkpoint]``: a checkpoint loaded with placements
+    on a one-rank mesh (``param_shardings`` of ``cfg``) equals the plain
+    load bitwise, every parameter and moment, local and whole."""
+    from repro_torch.distribution import param_shardings
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training import load_checkpoint
+    plain = load_checkpoint(ckpt_dir, like)
+    with one_rank_group(torch):
+        mesh = make_debug_mesh()
+        pls = param_shardings(like[0], mesh, cfg=cfg)
+        placed = load_checkpoint(ckpt_dir, like, placements=pls, mesh=mesh)
+        n = 0
+        for a, b in ((placed[1], plain[1]), (placed[2]["m"], plain[2]["m"]),
+                     (placed[2]["v"], plain[2]["v"])):
+            for name, t in b.items():
+                assert torch.equal(a[name].to_local(), t) and torch.equal(
+                    a[name].full_tensor(), t), name
+                n += 1
+        assert placed[0] == plain[0] and torch.equal(placed[2]["step"],
+                                                     plain[2]["step"])
+        sharded = sum(any(p.is_shard() for p in pl) for pl in pls.values())
+    log("distribution.checkpoint", world=1, backend="nccl",
+        mesh=json.dumps(tuple(mesh.shape)), tensors=n,
+        with_a_shard_placement=sharded,
+        result="placed load == plain load, bitwise (local and whole)")
 
 
 def main() -> int:
@@ -4435,7 +4774,15 @@ def main() -> int:
             e[f"{key}_launches"] = r[count]
     kernels.extend(arm_entries)
 
-    # ----------------------------------------------------- 11. training
+    # ------------------------------------------------- 11. distribution
+    dist_res = distribution_phases(torch, da_ops, decode_attention_ref,
+                                   plain_calls)
+    kernels[2]["distribution_launches"] = dist_res.pop("launches")
+    kernels[2]["distribution"] = dist_res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------- 12. training
     flash_bwd = kernels_flash_bwd(torch, F, fa_ops, flash_attention_bwd_ref,
                                   flash_attention_lse_ref)
     scan_bwd = kernels_scan_bwd(torch, lru_ops, linear_scan_ref,
@@ -4456,7 +4803,7 @@ def main() -> int:
     scan_bwd["launches"] = trained["scan_bwd"]
     kernels.append(scan_bwd)
 
-    # ------------------------------------------------------ 12. the report
+    # ------------------------------------------------------ 13. the report
     log("done", wall_s=f"{time.perf_counter() - t_start:.3f}",
         build_s=f"{build.build_seconds:.3f}")
     print(json.dumps({"kernels": kernels}))

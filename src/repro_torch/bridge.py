@@ -38,10 +38,14 @@ port's model of ``cfg.family``.  It imports no JAX.
   ``opt_state_from_jax`` carries the JAX optimizer state ``{"m", "v",
   "step"}`` over with its moments kept float32, as both optimizers keep
   them.
+* ``jax_leaves(names, cfg)`` is the reverse of this naming: for every
+  port parameter name, the JAX leaf's path and, for a block split from a
+  stacked axis, its index along that axis and the axis's length (the
+  distribution layer's placements read the JAX policy's spec there).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,6 +68,49 @@ def _flatten(tree, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
+class JaxLeaf(NamedTuple):
+    """Where a port parameter comes from in the JAX pytree: the leaf's
+    path (``/blocks/attn/wq``), and where the leaf is stacked on a leading
+    layer axis, the index along it and its length (else None)."""
+    path: str
+    index: Optional[int]
+    stacked: Optional[int]
+
+
+def _block_layout(cfg: ModelConfig):
+    """``(port prefix, JAX path, index, stacked length)`` of every block
+    (and of the encoder-decoder's final LayerNorms), in the order the
+    port's ``state_dict`` holds them; ``index`` and the length are None
+    for a block the JAX tree does not stack."""
+    if cfg.family == "audio":
+        for stack, n in (("enc_blocks", cfg.enc_layers),
+                         ("dec_blocks", cfg.num_layers)):
+            for i in range(n):
+                yield f"{stack}.{i}", (stack,), i, n
+        yield "enc_ln", ("enc_ln",), None, None
+        yield "dec_ln", ("dec_ln",), None, None
+    elif cfg.family == "ssm":
+        n = cfg.num_layers // 2
+        for i in range(n):
+            yield f"pairs.{i}", ("pairs",), i, n
+    elif cfg.family == "hybrid":
+        glen = len(cfg.block_pattern or ("rglru", "rglru", "attn"))
+        n_groups = cfg.num_layers // glen
+        for g in range(n_groups):
+            for i in range(glen):
+                yield f"blocks.{glen * g + i}", ("groups", f"b{i}"), g, \
+                    n_groups
+        for j in range(cfg.num_layers - glen * n_groups):
+            yield f"blocks.{glen * n_groups + j}", ("leftover", j), None, None
+    else:
+        n_lead = cfg.moe.first_dense_layers if cfg.moe else 0
+        for i in range(n_lead):
+            yield f"blocks.{i}", ("lead_blocks", i), None, None
+        n = cfg.num_layers - n_lead
+        for i in range(n):
+            yield f"blocks.{n_lead + i}", ("blocks",), i, n
+
+
 def params_from_jax(np_params, cfg: ModelConfig,
                     dtype: Optional[torch.dtype] = None
                     ) -> Dict[str, torch.Tensor]:
@@ -75,43 +122,38 @@ def params_from_jax(np_params, cfg: ModelConfig,
     f32_dtype = dtype or torch.float32
     dtype = dtype or getattr(torch, cfg.dtype)
     sd = {"embed": _tensor(np_params["embed"], dtype)}
-
-    def put(prefix: str, tree, index=None):
+    if cfg.family != "audio":
+        sd["final_norm"] = _tensor(np_params["final_norm"], dtype)
+    if cfg.family not in ("audio", "ssm") and "lm_head" in np_params:
+        sd["lm_head"] = _tensor(np_params["lm_head"], dtype)
+    for prefix, path, index, _ in _block_layout(cfg):
+        tree = np_params
+        for key in path:
+            tree = tree[key]
         for name, leaf in _flatten(tree):
             a = leaf if index is None else leaf[index]
             sd[f"{prefix}.{name}"] = _tensor(
                 a, f32_dtype if name in _F32_LEAVES else dtype)
-
-    if cfg.family == "audio":
-        for stack, n in (("enc_blocks", cfg.enc_layers),
-                         ("dec_blocks", cfg.num_layers)):
-            for i in range(n):
-                put(f"{stack}.{i}", np_params[stack], i)
-        put("enc_ln", np_params["enc_ln"])
-        put("dec_ln", np_params["dec_ln"])
-        return sd
-    sd["final_norm"] = _tensor(np_params["final_norm"], dtype)
-    if cfg.family == "ssm":
-        for i in range(cfg.num_layers // 2):
-            put(f"pairs.{i}", np_params["pairs"], i)
-        return sd
-    if "lm_head" in np_params:
-        sd["lm_head"] = _tensor(np_params["lm_head"], dtype)
-    if cfg.family == "hybrid":
-        glen = len(cfg.block_pattern or ("rglru", "rglru", "attn"))
-        n_groups = cfg.num_layers // glen
-        for g in range(n_groups):
-            for i in range(glen):
-                put(f"blocks.{glen * g + i}", np_params["groups"][f"b{i}"], g)
-        for j, block in enumerate(np_params["leftover"]):
-            put(f"blocks.{glen * n_groups + j}", block)
-        return sd
-    lead = np_params.get("lead_blocks", [])
-    for i, block in enumerate(lead):
-        put(f"blocks.{i}", block)
-    for i in range(cfg.num_layers - len(lead)):
-        put(f"blocks.{len(lead) + i}", np_params["blocks"], i)
     return sd
+
+
+def jax_leaves(names: Iterable[str], cfg: ModelConfig
+               ) -> Dict[str, JaxLeaf]:
+    """The reverse of ``params_from_jax``'s naming: for each port
+    parameter name of a ``cfg`` model, the JAX leaf it comes from."""
+    layout = [(prefix + ".", path, index, n)
+              for prefix, path, index, n in _block_layout(cfg)]
+    out = {}
+    for name in names:
+        for prefix, path, index, n in layout:
+            if name.startswith(prefix):
+                parts = [str(p) for p in path] + \
+                    name[len(prefix):].split(".")
+                out[name] = JaxLeaf("/" + "/".join(parts), index, n)
+                break
+        else:
+            out[name] = JaxLeaf("/" + name.replace(".", "/"), None, None)
+    return out
 
 
 def opt_state_from_jax(np_state, cfg: ModelConfig) -> Dict:

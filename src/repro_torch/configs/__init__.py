@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoEConfig, round_up
+from repro_torch.configs.base import (SHAPES, ModelConfig, MoEConfig,
+                                      ShapeSpec, round_up)
 
 _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
@@ -46,5 +47,5 @@ def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
-__all__ = ["ModelConfig", "MoEConfig", "ARCH_IDS", "get_config",
-           "get_smoke", "round_up"]
+__all__ = ["ModelConfig", "MoEConfig", "ShapeSpec", "SHAPES", "ARCH_IDS",
+           "get_config", "get_smoke", "round_up"]

@@ -306,6 +306,34 @@ class GriffinLM(nn.Module):
     def cache_capacity(self, max_len: int) -> int:
         return min(max_len, self.cfg.local_attn_window)
 
+    def init_cache(self, batch: int, max_len: int) -> Cache:
+        """A zero state cache in the layout ``prefill`` fills (the JAX
+        ``init_cache``'s), on the model's device (meta tensors on a meta
+        model): ``g{i}_*`` stacked ``(G, B, ...)`` over groups, ``l{j}_*``
+        ``(B, ...)``, the RG-LRU state float32, the ring of ``T =
+        cache_capacity(max_len)`` slots."""
+        cfg, dev = self.cfg, self.device
+        T = self.cache_capacity(max_len)
+        G, B, dr = self.n_groups, batch, self.d_rnn
+        conv = (B, cfg.conv1d_width - 1, dr)
+        kv = (G, B, T, cfg.num_kv_heads, self.head_dim)
+        cache: Cache = {"length": torch.zeros(B, dtype=torch.int32,
+                                              device=dev)}
+        for i, kind in enumerate(self.pattern):
+            if kind == "rglru":
+                cache[f"g{i}_lru"] = torch.zeros(G, B, dr, device=dev)
+                cache[f"g{i}_conv"] = torch.zeros((G,) + conv,
+                                                  dtype=self.dtype, device=dev)
+            else:
+                for name in ("k", "v"):
+                    cache[f"g{i}_{name}"] = torch.zeros(
+                        kv, dtype=self.dtype, device=dev)
+        for j in range(self.n_leftover):
+            cache[f"l{j}_lru"] = torch.zeros(B, dr, device=dev)
+            cache[f"l{j}_conv"] = torch.zeros(conv, dtype=self.dtype,
+                                              device=dev)
+        return cache
+
     def cache_batch_axes(self, cache: Cache) -> Dict[str, int]:
         return {k: (0 if (k == "length" or k.startswith("l")) else 1)
                 for k in cache}

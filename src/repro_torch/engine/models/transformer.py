@@ -457,6 +457,19 @@ class TransformerLM(nn.Module):
         w = self.cfg.swa_window
         return min(max_len, w) if w else max_len
 
+    def init_cache(self, batch: int, max_len: int) -> Cache:
+        """A zero dense cache in the layout ``prefill`` fills, ``{"k", "v":
+        (L,B,T,Hkv,Dh), "length": (B,)}`` with ``T = cache_capacity(
+        max_len)``, on the model's device (meta tensors on a meta model).
+        The JAX ``init_cache`` keeps an MoE model's unscanned lead layers
+        in ``lead_k``/``lead_v``; here every layer is in ``k``/``v``."""
+        cfg, dev = self.cfg, self.device
+        shape = (cfg.num_layers, batch, self.cache_capacity(max_len),
+                 cfg.num_kv_heads, self.head_dim)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=self.dtype, device=dev),
+                "length": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
     def cache_batch_axes(self, cache: Cache) -> Dict[str, int]:
         return {k: (0 if k == "length" else 1) for k in cache}
 

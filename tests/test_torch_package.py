@@ -71,7 +71,10 @@ def test_every_module_imports_without_jax():
               "repro_torch.training.optimizer",
               "repro_torch.training.checkpoint",
               "repro_torch.training.grad_compress",
-              "repro_torch.training.data", "repro_torch.launch.train"):
+              "repro_torch.training.data", "repro_torch.launch.train",
+              "repro_torch.launch.mesh", "repro_torch.distribution",
+              "repro_torch.distribution.sharding",
+              "repro_torch.distribution.collectives"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
@@ -102,6 +105,9 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert PKG / "launch" / "serve.py" in sources
     assert PKG / "launch" / "train.py" in sources
     assert PKG / "training" / "trainer.py" in sources
+    assert PKG / "launch" / "mesh.py" in sources
+    for mod in ("__init__", "sharding", "collectives"):
+        assert PKG / "distribution" / f"{mod}.py" in sources, mod
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -179,6 +185,47 @@ def test_training_entry_points_default_to_cuda_and_raise_without_a_card():
         train.main(["--arch", "qwen3-1.7b", "--steps", "1"])
     out = train_loop(cfg, TrainerConfig(), dcfg, num_steps=1, device="cpu")
     assert out["model"].device.type == "cpu"
+
+
+def test_distribution_entry_points_default_to_cuda_and_raise_without_a_card(
+        tmp_path):
+    """The meshes ask for the card by default and raise where there is
+    none; on the CPU, asked for, a one-rank gloo group's debug mesh and
+    ``sharded_decode_attention`` over it run the decode's plain version
+    (no kernel launch) and give the unsharded result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import torch.distributed as dist
+    from repro_torch.distribution.collectives import (
+        sharded_decode_attention)
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+    for make in (make_debug_mesh, make_production_mesh):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_debug_mesh(device="cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_debug_mesh()
+        mesh = make_debug_mesh(device="cpu")
+        assert mesh.device_type == "cpu" and tuple(mesh.shape) == (1, 1)
+        g = torch.Generator().manual_seed(0)
+        q = torch.randn(2, 4, 16, generator=g)
+        k, v = (torch.randn(2, 12, 2, 16, generator=g) for _ in range(2))
+        qp = torch.tensor([11, 4], dtype=torch.int32)
+        kp = torch.arange(12, dtype=torch.int32).expand(2, 12).contiguous()
+        da_ops.reset_counts()
+        out = sharded_decode_attention(q, k, v, qp, kp,
+                                       group=mesh.get_group("model"))
+        assert da_ops.launches == 0
+        ref = da_ops.decode_attention(q, k, v, q_positions=qp,
+                                      kv_positions=kp)
+        torch.testing.assert_close(out, ref, atol=2e-6, rtol=2e-6)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_training_imports_no_jax():
