@@ -145,7 +145,25 @@ each:
    flash and scan backward counted, every flash backward on the tensor
    cores; ``.profile`` one step) and ``[train.audio]`` (whisper-tiny,
    3 steps over 1500 frames: causal, non-causal and cross backward);
-13. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
+13. the roofline on the card (``[roofline.card]``): qwen3-1.7b's paged
+   decode step (B=8) and chunk prefill, timed in 4., and
+   ``[train.qwen3]``'s step, each counted by the port's op-cost counter
+   (``repro_torch.launch.op_cost``) on meta tensors at its shapes as the
+   card runs it (the hand kernels charge their own traffic): the bound
+   (FLOPs at 989 TFLOP/s, bytes at 3.35 TB/s) must not pass the
+   measured device-busy time, and the FLOPs
+   must fall in a band of ``model_flops`` (``ROOFLINE_BANDS``); the
+   share bound / measured, and the dry run's per-device bytes for the
+   train step beside the card's peak (logged);
+14. the dry run (``[dryrun.sweep]``, ``repro_torch.launch.dryrun``, no
+   card: meta tensors over a fake process group) over all ten archs and
+   four shapes on the 16 x 16 mesh and the 2 x 16 x 16 mesh, in seven
+   processes started after the last timed phase: no cell may fail,
+   every 16 x 16 cell must report, the skipped cells must be the seven
+   full-attention archs at long_500k; each cell's roofline row, the
+   2 x 16 x 16 cells done in the budget (``SWEEP_BUDGET_S``), the
+   sweep's seconds;
+15. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
    single and blocked arms as entries of their own; the two backward
    kernels last), the card's ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -169,10 +187,14 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
-# larger of bytes / memory rate and operations / the rate for their type
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense), the port's one source of them
+# (repro_torch/configs/base.py, read by launch/roofline.py): the bound of
+# a kernel is the larger of bytes / memory rate and operations / the rate
+# for their type
+from repro_torch.configs.base import HBM_BW as PEAK_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.roofline import (PEAK_FLOPS,  # noqa: E402
+                                         kernel_time_bound)
+
 PEAKS_OF = "H100 SXM (3.35 TB/s HBM3, 989 TFLOP/s bf16, 67 TFLOP/s f32)"
 
 
@@ -335,10 +357,12 @@ def graph_nodes(torch, fn):
 
 
 def bound(nbytes: float, flops: float, dtype: str):
+    """(``kernel_time_bound`` in ms at the peak for ``dtype``'s
+    operations, which term binds)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return (kernel_time_bound(nbytes, flops, peak_flops=PEAK_FLOPS[dtype])
+            * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 def fmt(d):
@@ -2214,11 +2238,13 @@ def live_step_parity(torch, np, eng, models, n_extras, serve):
     return {a: got[a] for a in models}, *got["rows"]
 
 
-def profile_engine(torch, np, eng, prompt, max_new):
+def profile_engine(torch, np, eng, prompt, max_new, shapes=None):
     """Where a call's time goes, under the profiler: a few decode steps
     over the engine's warm rows (at most 8, padded to 8 as the engine
     pads) and two cold chunk prefills of ``prompt`` (padded to the
-    engine's bucket).  {call: (wall ms, device-busy ms, top kernels)}."""
+    engine's bucket).  {call: (wall ms, device-busy ms, top kernels)}; the
+    two steps' shapes go into ``shapes`` where given: {"decode": (B, table
+    pages, page size, pool dtype, lengths), "prefill": (S, T)}."""
     dev = eng.device
     tok, pt, lens = warm_step_inputs(torch, np, eng, 8, batch=8)
     live = int((lens >= 0).sum().item())
@@ -2235,7 +2261,11 @@ def profile_engine(torch, np, eng, prompt, max_new):
         eng.model.prefill_with_cache(chunk, eng._chunk_view(T),
                                      valid_len=valid)
 
-    return {f"decode_step(B=8,{live} live rows)":
+    ps = eng.kv.k.shape[2]
+    if shapes is not None:
+        shapes.update(decode=(8, pt.shape[1], ps, eng.kv.k.dtype,
+                              lens.tolist()), prefill=(pad, T))
+    return {f"decode_step(B=8,{live} live rows,T={pt.shape[1] * ps})":
             profile_calls(torch, decode_step, 5),
             f"chunk_prefill(S={pad},T={T})":
             profile_calls(torch, prefill_chunk, 2)}
@@ -3868,6 +3898,8 @@ def train_phases(torch, np, get_config, build_model, fa_ops, lru_ops,
                      "tensor_core": 2 * L, "backward_tensor_core": L}, split
     step_fn = make_train_step(model, tcfg)
     wall, busy, top = profile_calls(torch, lambda: step_fn(opt, batch), 1)
+    out_counts["qwen3_step"] = {"wall_ms": wall, "busy_ms": busy,
+                                "peak_gib": peak, "batch": 8, "seq": 512}
     log("train.qwen3", model=f"qwen3-1.7b(full width, {L} layers, "
         f"{cfg.param_count() / 1e9:.3f}B params)", dtype="bf16",
         batch="B=8,S=512", remat=True, steps=steps, lr=1e-3, warmup=2,
@@ -4418,6 +4450,259 @@ def distribution_checkpoint(torch, ckpt_dir, cfg, like):
         result="placed load == plain load, bitwise (local and whole)")
 
 
+# ------------------------------------------------- dry run and roofline
+# [dryrun.sweep]: the port's dry run (repro_torch.launch.dryrun: meta
+# tensors over a fake process group, no card) over every arch and shape on
+# the 16 x 16 mesh and on the 2 x 16 x 16 mesh, in one process for each of
+# SWEEP_GROUPS ((archs, mesh flag): the groups balanced by the cells'
+# trace seconds on the card's host), started after the last timed phase so
+# that no timed phase shares the host's cores with it.  Every cell must
+# report; the 2 x 16 x 16 cells still running SWEEP_BUDGET_S after the
+# start are cut and counted.
+SWEEP_GROUPS = ((("xlstm-350m",), "--single-pod"),
+                (("xlstm-350m",), "--multi-pod"),
+                (("deepseek-67b",), "--all"),
+                (("mixtral-8x22b", "recurrentgemma-2b"), "--all"),
+                (("qwen3-8b", "internvl2-2b"), "--all"),
+                (("whisper-tiny", "llama3.2-3b"), "--all"),
+                (("deepseek-moe-16b", "qwen3-1.7b"), "--all"))
+SWEEP_BUDGET_S = 240.0
+# the quick cells first, so that the 2 x 16 x 16 mesh gets through the most
+SWEEP_SHAPES = ("decode_32k", "long_500k", "prefill_32k", "train_4k")
+# [roofline.card]: counted FLOPs over model_flops (2 N a token for
+# inference, 6 N for training, N the parameters, the tied embedding once)
+# of three steps the script times, on the card's path (the flash and
+# paged kernels counted by their own work), written from the arithmetic
+# before the run.  qwen3-1.7b: N 1.7208e9, N_blocks 1.4097e9, the head
+# D V = 3.112e8, 28 layers, 16 heads of 128.  Decode (B=8): 2 N a row,
+# plus QK^T and PV over the keys the live rows attend, 2.29e5 FLOPs a key,
+# at most 8 x 416 keys: 1.0 to 1.028.  Chunk prefill (S=384): 2 N_blocks
+# a token, the head for one token and the causal triangle (384 x 385 / 2
+# pairs): 0.8325.  Remat train step (B=8, S=512): the blocks' forward
+# twice and their backward (8 N_blocks a token), the head's forward and
+# backward (6 D V), flash forward twice and backward (18 Dh H a pair):
+# 1.299, less the last op of each block that torch's non-reentrant
+# checkpoint does not recompute (-0.068): 1.231.
+ROOFLINE_BANDS = {"decode": (1.0, 1.03), "prefill": (0.80, 0.86),
+                  "train": (1.15, 1.30)}
+
+
+class DryrunSweep:
+    """The [dryrun.sweep] processes, their output files and the cells
+    they report."""
+
+    def __init__(self, out_dir: pathlib.Path):
+        import os
+        self.out = out_dir
+        self.t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1")
+        self.logs, self.procs = [], []
+        for i, (archs, meshes) in enumerate(SWEEP_GROUPS):
+            log_path = out_dir / f"sweep_{i}.log"
+            self.logs.append(log_path)
+            with open(log_path, "w") as f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     meshes, "--arch", ",".join(archs), "--shape",
+                     ",".join(SWEEP_SHAPES), "--out", str(out_dir / "cells")],
+                    cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT))
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def cells(self) -> dict:
+        """{(arch, shape, mesh): status} of the cells reported so far."""
+        out = {}
+        for log_path in self.logs:
+            for line in log_path.read_text().splitlines():
+                m = re.match(r"\[(ok|error|skipped)\s*\] (\S+)\s+(\S+)\s+"
+                             r"(\S+)", line)
+                if m:
+                    out[m.group(2), m.group(3), m.group(4)] = m.group(1)
+        return out
+
+    def finish(self, deadline_s: float) -> dict:
+        """Wait until every process ends or, past ``deadline_s`` on the
+        sweep's clock, until every 16 x 16 cell has reported; then end
+        what still runs.  Returns the cells and the sweep's seconds."""
+        from repro_torch.configs import ARCH_IDS, SHAPES
+        single = {(a, s, "pod16x16") for a in ARCH_IDS for s in SHAPES}
+        while any(p.poll() is None for p in self.procs):
+            done = single <= set(self.cells())
+            if done and time.perf_counter() - self.t0 > deadline_s:
+                break
+            time.sleep(1.0)
+        cut = 0
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                cut += 1
+            p.wait()
+        return self.cells(), time.perf_counter() - self.t0, cut
+
+
+def dryrun_sweep_phase(sweep: DryrunSweep, deadline_s: float):
+    """[dryrun.sweep]: no error in any reported cell; every 16 x 16 cell
+    reported; the skipped cells are the full-attention archs at long_500k
+    (JAX's ``shape_applicable`` set), on each mesh; each ok cell's
+    roofline row printed."""
+    from repro_torch.configs import ARCH_IDS, SHAPES, all_configs
+    from repro_torch.launch.roofline import analyze_cell, load_cells
+    cells, secs, cut = sweep.finish(deadline_s)
+    errors = sorted(k for k, v in cells.items() if v == "error")
+    for log_path in sweep.logs:
+        if errors:
+            print(log_path.read_text()[-3000:], file=sys.stderr)
+    assert not errors, errors
+    full_attn = {a for a, c in all_configs().items() if c.full_attention}
+    assert full_attn == {"deepseek-moe-16b", "whisper-tiny", "deepseek-67b",
+                         "llama3.2-3b", "qwen3-1.7b", "qwen3-8b",
+                         "internvl2-2b"}, full_attn
+    by_mesh = {}
+    for mesh in ("pod16x16", "pod2x16x16"):
+        mine = {(a, s): v for (a, s, m), v in cells.items() if m == mesh}
+        skipped = {k for k, v in mine.items() if v == "skipped"}
+        assert skipped == {(a, "long_500k") for a in full_attn
+                           if (a, "long_500k") in mine}, (mesh, skipped)
+        by_mesh[mesh] = {"ok": sum(v == "ok" for v in mine.values()),
+                         "skipped": len(skipped),
+                         "of": len(ARCH_IDS) * len(SHAPES)}
+    assert by_mesh["pod16x16"] == {"ok": 33, "skipped": 7, "of": 40}, by_mesh
+    for mesh in ("pod16x16", "pod2x16x16"):
+        for cell in load_cells(str(sweep.out / "cells"), mesh):
+            r = analyze_cell(cell)
+            log("dryrun.roofline", arch=r["arch"], shape=r["shape"],
+                mesh=mesh, compute_s=f"{r['t_compute_s']:.6g}",
+                memory_s=f"{r['t_memory_s']:.6g}",
+                collective_s=f"{r['t_collective_s']:.6g}",
+                dominant=r["dominant"],
+                useful_flop_ratio=f"{r['useful_flop_ratio']:.4f}",
+                roofline_pct=f"{100 * r['roofline_fraction']:.3f}",
+                hbm_fit=r["hbm_fit"], trace_s=cell["trace_s"])
+    log("dryrun.sweep", processes=len(SWEEP_GROUPS), errors=0,
+        pod16x16=json.dumps(by_mesh["pod16x16"]),
+        pod2x16x16=json.dumps(by_mesh["pod2x16x16"]),
+        cut_processes=cut, sweep_s=f"{secs:.3f}",
+        budget=f"{SWEEP_BUDGET_S:.0f} s, after the card's phases",
+        device="none (meta tensors, fake group)")
+    return by_mesh
+
+
+def count_steps(torch, cfg, dec, pf, tr):
+    """``op_cost``'s counts of three of ``cfg``'s steps on meta with no
+    mesh, as the card runs them (``attention_impl="cuda"``: each hand
+    kernel charges its own work, ``cost_hooks.charge``): the paged decode
+    step over a (B, pages) table of ``dec`` = (B, pages, page size, pool
+    dtype), every slot the table names charged, the chunk prefill of S
+    tokens into a (1, T) view (``pf``), and the remat train step on (B,
+    S) tokens (``tr``).  Needs no card.  Returns the counts and the
+    paged layout (layers, KV heads, Dh)."""
+    from repro_torch.engine.models import build_model
+    from repro_torch.launch.op_cost import analyze_ops
+    from repro_torch.training import AdamWConfig, TrainerConfig
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.trainer import make_train_step
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+
+    model = build_model(cfg.replace(attention_impl="cuda"), device="meta")
+    layout = model.paged_kv_layout()
+    B, n_pages, ps, pool_dtype = dec
+    pools = [meta(layout[0], B * n_pages, ps, *layout[1:], dtype=pool_dtype)
+             for _ in range(2)]
+    out = {"decode": analyze_ops(model.paged_decode_step, meta(B), *pools,
+                                 meta(B, n_pages), meta(B))}
+    out["prefill"] = analyze_ops(
+        model.prefill_with_cache, meta(1, pf[0]),
+        model.init_cache(1, pf[1]), valid_len=meta(1))
+    model.requires_grad_(True)
+    opt = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(model, TrainerConfig(remat=True, adamw=AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=20)))
+    out["train"] = analyze_ops(
+        step, opt, {"tokens": meta(*tr), "labels": meta(*tr)})
+    return out, layout
+
+
+def roofline_card_phase(torch, get_config, engine_profile, engine_shapes,
+                        train_step):
+    """[roofline.card]: qwen3-1.7b's paged decode step (B=8) and chunk
+    prefill (``[engine.profile]``) and ``[train.qwen3]``'s step, each
+    counted by ``op_cost`` at its shapes as the card runs it, the hand
+    kernels by their own traffic: bound = max(FLOPs / 989 TFLOP/s, bytes
+    / 3.35 TB/s) must not pass the measured device-busy time, and the
+    FLOPs must fall in ``ROOFLINE_BANDS`` of ``model_flops``.  The
+    decode's count is made exact for this step's lengths: the paged
+    kernel charged on meta every slot its table names, and the slots past
+    each row's pages (K and V) and past its length (QK^T and PV) come
+    off.  Beside the train step, ``per_device_bytes`` of the dry run's
+    arithmetic on a one-device mesh and the card's peak (logged)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.configs.base import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.launch.dryrun import _activation_residency
+    cfg = get_config("qwen3-1.7b")
+    measured = {("decode" if what.startswith("decode") else "prefill"):
+                (busy, wall) for what, (wall, busy, _) in
+                engine_profile.items()}
+    B, n_pages, ps, pool_dtype, lens = engine_shapes["decode"]
+    S_pf, T_pf = engine_shapes["prefill"]
+    B_tr, S_tr = train_step["batch"], train_step["seq"]
+    measured["train"] = (train_step["busy_ms"], train_step["wall_ms"])
+    shapes = {"decode": {"B": B, "T": n_pages * ps, "lengths": lens},
+              "prefill": {"S": S_pf, "T": T_pf},
+              "train": {"B": B_tr, "S": S_tr}}
+    counts, (n_layers, Hkv, Dh) = count_steps(
+        torch, cfg, (B, n_pages, ps, pool_dtype), (S_pf, T_pf), (B_tr, S_tr))
+    live = [n for n in lens if n >= 0]
+    named = B * n_pages * ps
+    held = sum(-(-(n + 1) // ps) * ps for n in live)
+    valid = sum(n + 1 for n in live)
+    elem = torch.empty((), dtype=pool_dtype).element_size()
+    counts["decode"]["bytes"] -= n_layers * 2 * Hkv * Dh * elem * (
+        named - held)
+    counts["decode"]["flops"] -= n_layers * 4 * cfg.num_heads * Dh * (
+        named - valid)
+    shapes["decode"].update(slots_named=named, slots_held=held,
+                            keys_attended=valid)
+    n = cfg.active_param_count()
+    tokens = {"decode": B, "prefill": S_pf, "train": B_tr * S_tr}
+    shares = {}
+    for kind, r in counts.items():
+        busy, wall = measured[kind]
+        mf = (6.0 if kind == "train" else 2.0) * n * tokens[kind]
+        ratio = r["flops"] / mf
+        lo, hi = ROOFLINE_BANDS[kind]
+        t_ops, t_bytes = r["flops"] / PEAK_FLOPS_BF16, r["bytes"] / HBM_BW
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        assert lo <= ratio <= hi, (kind, ratio, ROOFLINE_BANDS[kind])
+        assert bound_ms <= busy, (kind, bound_ms, busy)
+        shares[kind] = bound_ms / busy
+        log("roofline.card", step=kind, model="qwen3-1.7b(full width)",
+            path="cuda (hand kernels)", shape=json.dumps(shapes[kind]),
+            counted_flops=f"{r['flops']:.6g}", model_flops=f"{mf:.6g}",
+            flops_over_model=f"{ratio:.4f}", band=json.dumps([lo, hi]),
+            bytes=f"{r['bytes']:.6g}", bound_ms=f"{bound_ms:.4f}",
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            device_busy_ms=f"{busy:.4f}", wall_ms=f"{wall:.4f}",
+            share_bound_over_busy=f"{bound_ms / busy:.4f}",
+            peaks=PEAKS_OF)
+    model_bytes = 2 * cfg.param_count()          # bf16 weights
+    args = model_bytes + 2 * 4 * cfg.param_count() + 2 * 4 * B_tr * S_tr
+    est = args + _activation_residency(
+        cfg, ShapeSpec("train", S_tr, B_tr, "train"),
+        type("Mesh", (), {"shape": {"data": 1, "model": 1}})())
+    log("roofline.card.memory", step="train", mesh="1 x 1",
+        per_device_bytes_gib=f"{est / 2**30:.3f}",
+        max_memory_allocated_gib=f"{train_step['peak_gib']:.3f}",
+        asserted=False)
+    return shares
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4682,8 +4967,10 @@ def main() -> int:
     # where a step's time goes: the profiler's device kernels over a few
     # decode steps (the 5 warm rows padded to 8, as the engine pads) and
     # over one 384-token cold chunk prefill
-    for what, (wall_ms, busy_ms, top) in profile_engine(
-            torch, np, eng, prompts["cold_c"], max_new).items():
+    engine_shapes = {}
+    engine_profile = profile_engine(torch, np, eng, prompts["cold_c"],
+                                    max_new, engine_shapes)
+    for what, (wall_ms, busy_ms, top) in engine_profile.items():
         log("engine.profile", call=what,
             wall_ms_per_call=f"{wall_ms:.3f}",
             device_busy_ms_per_call=f"{busy_ms:.3f}",
@@ -4802,8 +5089,25 @@ def main() -> int:
     kernels[0]["train_launches"] = trained["flash_train"]
     scan_bwd["launches"] = trained["scan_bwd"]
     kernels.append(scan_bwd)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ------------------------------------------------------ 13. the report
+    # --------------------------------------------------- 13. roofline.card
+    roofline_card_phase(torch, get_config, engine_profile, engine_shapes,
+                        trained["qwen3_step"])
+
+    # --------------------------------------------------- 14. dryrun.sweep
+    # after the last timed phase: the dry run needs no card, and its
+    # processes would share the host with the timed phases
+    import atexit
+    import shutil
+    sweep_dir = pathlib.Path(tempfile.mkdtemp(prefix="dryrun_sweep_"))
+    atexit.register(shutil.rmtree, sweep_dir, ignore_errors=True)
+    sweep = DryrunSweep(sweep_dir)
+    atexit.register(sweep.kill)
+    dryrun_sweep_phase(sweep, SWEEP_BUDGET_S)
+
+    # ------------------------------------------------------ 15. the report
     log("done", wall_s=f"{time.perf_counter() - t_start:.3f}",
         build_s=f"{build.build_seconds:.3f}")
     print(json.dumps({"kernels": kernels}))

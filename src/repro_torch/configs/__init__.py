@@ -9,13 +9,20 @@ hybrid ``recurrentgemma-2b``, the VLM ``internvl2-2b``, the ssm
 ``xlstm-350m`` and the encoder-decoder ``whisper-tiny``.  At full depth
 ``mixtral-8x22b`` and ``deepseek-67b`` need more than one 80 GB card.
 An arch name neither package has raises ``KeyError``.
+
+``all_configs()`` maps every arch to its full config, and
+``input_shapes(cfg, shape)`` gives the dry run's step inputs of one
+(arch, shape) cell as ``(shape, dtype)`` pairs.
 """
 from __future__ import annotations
 
 import importlib
+from typing import Dict, Tuple
+
+import torch
 
 from repro_torch.configs.base import (SHAPES, ModelConfig, MoEConfig,
-                                      ShapeSpec, round_up)
+                                      ShapeSpec, round_up, shape_applicable)
 
 _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
@@ -47,5 +54,48 @@ def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+# ---------------------------------------------------------------------------
+# dry-run inputs (shapes and dtypes; the dry run makes them on "meta")
+# ---------------------------------------------------------------------------
+
+def input_shapes(cfg: ModelConfig, shape: ShapeSpec
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The step inputs of one (arch, shape) cell as ``{name: (shape,
+    dtype)}``: the JAX package's ``configs.input_specs``, which returns
+    ``ShapeDtypeStruct``s.  It has another name here because the port's
+    ``distribution.sharding.input_specs`` already gives these inputs'
+    placement specs.
+
+    train  -> {tokens, labels}
+    prefill-> {tokens}
+    decode -> {token} (one new token; the step's cache is the model's
+              ``init_cache``)
+    The modality frontends are stubs: audio adds ``frames`` (B, enc_len,
+    D), precomputed frame embeddings, and vlm ``patch_embeds`` (B, P, D).
+    """
+    i32, bf16 = torch.int32, torch.bfloat16
+    B, S = shape.global_batch, shape.seq_len
+    out: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    if shape.kind == "train":
+        out["tokens"] = ((B, S), i32)
+        out["labels"] = ((B, S), i32)
+    elif shape.kind == "prefill":
+        out["tokens"] = ((B, S), i32)
+    elif shape.kind == "decode":
+        out["token"] = ((B,), i32)
+    else:
+        raise ValueError(shape.kind)
+    if cfg.family == "audio" and shape.kind != "decode":
+        out["frames"] = ((B, min(cfg.enc_max_len, S), cfg.d_model), bf16)
+    if cfg.family == "vlm" and shape.kind != "decode":
+        out["patch_embeds"] = ((B, cfg.num_patches, cfg.d_model), bf16)
+    return out
+
+
 __all__ = ["ModelConfig", "MoEConfig", "ShapeSpec", "SHAPES", "ARCH_IDS",
-           "get_config", "get_smoke", "round_up"]
+           "get_config", "get_smoke", "all_configs", "input_shapes",
+           "shape_applicable", "round_up"]

@@ -1,15 +1,33 @@
 """Model configuration for the PyTorch port.
 
-A copy of the JAX package's ``ModelConfig``/``MoEConfig`` dataclasses
-without its TPU hardware constants.  ``attention_impl`` selects the
-attention path: ``"cuda"`` (the hand-written kernels, the default) or
-``"torch"`` (plain PyTorch math, the counterpart of the JAX ``"xla"``).
+A copy of the JAX package's ``ModelConfig``/``MoEConfig`` dataclasses,
+``ShapeSpec``/``SHAPES`` and ``shape_applicable``, with the NVIDIA H100
+SXM's hardware constants in place of the JAX package's TPU ones (the
+roofline, ``launch/roofline.py``, and the dry run's memory fit read
+them).  ``attention_impl`` selects the attention path: ``"cuda"`` (the
+hand-written kernels, the default) or ``"torch"`` (plain PyTorch math,
+the counterpart of the JAX ``"xla"``).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Hardware constants: one NVIDIA H100 SXM5 80 GB (NVIDIA H100 Tensor Core
+# GPU data sheet; dense rates, no structured sparsity)
+# ---------------------------------------------------------------------------
+PEAK_FLOPS_BF16 = 989e12      # per GPU, FLOP/s: BF16 tensor cores, dense
+PEAK_FLOPS_F32 = 67e12        # per GPU, FLOP/s: FP32 on the CUDA cores
+HBM_BW = 3.35e12              # per GPU, bytes/s: HBM3
+HBM_BYTES = 80e9              # per GPU, bytes (80 GB)
+# the collective terms (the JAX package's ICI_BW and DCN_BW counterparts)
+NVLINK_BW = 450e9             # per GPU, bytes/s, one direction: NVLink 4,
+#                               18 links, 900 GB/s both directions together
+IB_BW = 50e9                  # per GPU, bytes/s, one direction: one NDR
+#                               InfiniBand port (400 Gb/s) a GPU, as in a
+#                               DGX H100 (cross-node)
 
 
 def round_up(x: int, m: int) -> int:
@@ -63,6 +81,14 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def full_attention(self) -> bool:
+        """True if the arch relies on unbounded dense self-attention (the
+        ssm holds no attention, the hybrid's local windows are bounded)."""
+        if self.family in ("ssm", "hybrid"):
+            return False
+        return self.swa_window == 0
 
     @property
     def padded_vocab(self) -> int:
@@ -141,3 +167,14 @@ SHAPES = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell is runnable; the reason if not.
+
+    long_500k requires sub-quadratic attention (a bounded window or a
+    recurrent state); the full-attention archs skip it, as in the JAX
+    package."""
+    if shape.name == "long_500k" and cfg.full_attention:
+        return False, "full dense attention cannot hold a 512k KV (O(S^2))"
+    return True, ""

@@ -206,7 +206,7 @@ class EncDecLM(nn.Module):
                                      device=dev).expand(B, T_enc).contiguous()
         positions = torch.arange(S, dtype=torch.int32,
                                  device=dev).expand(B, S).contiguous()
-        x = self.embed[tokens] + self._positions_table(S)[None]
+        x = L.embed_lookup(self.embed, tokens) + self._positions_table(S)[None]
         return x, positions, enc_positions
 
     def _dec_prompt(self, tokens, frames, impl):
@@ -318,7 +318,8 @@ class EncDecLM(nn.Module):
         dev = token.device
         pos = cache["length"].to(torch.int32)
         T, T_enc = cache["k"].shape[2], cache["xk"].shape[2]
-        x = (self.embed[token] + self._positions_table(T)[pos.long()])[:, None]
+        x = (L.embed_lookup(self.embed, token)
+             + self._positions_table(T)[pos.long()])[:, None]
         slots = torch.arange(T, dtype=torch.int32, device=dev)[None]
         kv_pos = torch.where(slots <= pos[:, None], slots, -1).to(
             torch.int32).contiguous()
@@ -331,8 +332,8 @@ class EncDecLM(nn.Module):
         for i, blk in enumerate(self.dec_blocks):
             q, k, v = self._qkv(blk.attn, self._ln(blk.ln1, x), q_pos)
             k_c, v_c = cache["k"][i], cache["v"][i]
-            k_c[batch_ix, slot] = k[:, 0]
-            v_c[batch_ix, slot] = v[:, 0]
+            L.write_slots_(k_c, batch_ix, slot, k[:, 0])
+            L.write_slots_(v_c, batch_ix, slot, v[:, 0])
             o = L.attention(q, k_c, v_c, q_positions=q_pos,
                             kv_positions=kv_pos, causal=True, impl=impl)
             x = x + L.attn_out(blk.attn, o)

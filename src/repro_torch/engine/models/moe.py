@@ -124,7 +124,12 @@ def _group_moe(xg: torch.Tensor, p, cfg: MoEConfig, capacity: int):
     src = xg.repeat_interleave(K, dim=1) \
         * keep.reshape(G, N * K, 1).to(xg.dtype)
     buf = xg.new_zeros(E, G, capacity, D)
-    buf.index_put_((e_idx, g_idx, c_idx), src, accumulate=True)
+    if L.sharded(buf):
+        # DTensor may place the written buffer anew, which in place it
+        # cannot
+        buf = buf.index_put((e_idx, g_idx, c_idx), src, accumulate=True)
+    else:
+        buf.index_put_((e_idx, g_idx, c_idx), src, accumulate=True)
 
     # ---- the experts (SwiGLU), one bmm per product over G*C rows ----------
     rows = buf.view(E, G * capacity, D)
@@ -155,10 +160,13 @@ def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig, num_groups: int = 0
     capacity = max(int(math.ceil(Ng * cfg.top_k / cfg.num_experts
                                  * cfg.capacity_factor)), cfg.top_k)
 
-    out, frac, meanp = _group_moe(x.reshape(G, Ng, D), p, cfg, capacity)
+    # under the hints the groups are made of rows placed for them, both
+    # ways (DTensor views a regrouping of dims sharded otherwise wrongly)
+    xg = L.constrain_rows(x, G).reshape(G, Ng, D)
+    out, frac, meanp = _group_moe(xg, p, cfg, capacity)
     aux = cfg.num_experts * torch.mean(frac.mean(0) * meanp.mean(0))
 
-    y = out.reshape(B, S, D)
+    y = L.rows_grad(out.reshape(B, S, D), G)
     if cfg.num_shared_experts:
         y = y + L.ffn_apply(p["shared"], x)
     return y, aux.float()

@@ -221,7 +221,7 @@ class GriffinLM(nn.Module):
         hr = rglru_sequence(blk.rg, causal_conv1d(u_in, blk.conv_w), impl)
         x = x + (gate * hr.to(x.dtype)) @ blk.w_out
         # the last W-1 conv inputs, zero-padded on the left for short prompts
-        conv = F.pad(u_in, (0, 0, max(0, W - 1 - u_in.shape[1]), 0))
+        conv = L.pad_time(u_in, max(0, W - 1 - u_in.shape[1]))
         return self._mlp_apply(blk.mlp, x), (hr[:, -1], conv[:, -(W - 1):])
 
     def _ablock_seq(self, blk: AttentionBlock, x, positions, impl):
@@ -239,7 +239,7 @@ class GriffinLM(nn.Module):
 
     def _run_prompt(self, tokens, impl):
         """Every block over the prompt: (final-normed x, per-layer state)."""
-        x = self.embed[tokens]
+        x = L.embed_lookup(self.embed, tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S).contiguous()
@@ -276,7 +276,7 @@ class GriffinLM(nn.Module):
         ``remat`` each full group of blocks is rematerialized in the
         backward; the leftover blocks are not, as in JAX."""
         impl = impl or self.cfg.attention_impl
-        x = self.embed[tokens]
+        x = L.embed_lookup(self.embed, tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S).contiguous()
@@ -379,7 +379,7 @@ class GriffinLM(nn.Module):
             if self._kind(layer) == "rglru":
                 vals = {"lru": st[0], "conv": st[1]}
             else:
-                vals = {kv: torch.roll(t[:, S - T:], shifts=S % T, dims=1)
+                vals = {kv: L.roll_time(t[:, S - T:], S % T)
                         for kv, t in zip(("k", "v"), st)}
             for name, t in vals.items():
                 if g is None:
@@ -404,7 +404,7 @@ class GriffinLM(nn.Module):
         impl = impl or cfg.attention_impl
         B = token.shape[0]
         pos = cache["length"].to(torch.int32)
-        x = self.embed[token]                                  # (B,D)
+        x = L.embed_lookup(self.embed, token)                  # (B,D)
         batch_ix = torch.arange(B, device=x.device)
         kv_pos = slot = None
         for layer, blk in enumerate(self.blocks):
@@ -436,8 +436,8 @@ class GriffinLM(nn.Module):
                                      head_dim=self.head_dim,
                                      positions=pos[:, None],
                                      rope_theta=cfg.rope_theta)
-                k_c[batch_ix, slot] = k[:, 0]
-                v_c[batch_ix, slot] = v[:, 0]
+                L.write_slots_(k_c, batch_ix, slot, k[:, 0])
+                L.write_slots_(v_c, batch_ix, slot, v[:, 0])
                 o = L.attention(q, k_c, v_c, q_positions=pos[:, None],
                                 kv_positions=kv_pos, causal=True,
                                 window=cfg.local_attn_window, impl=impl)

@@ -157,10 +157,19 @@ class TransformerLM(nn.Module):
         y, a = M.moe_ffn(h, blk.moe, self.cfg.moe)
         return x + y, a
 
+    def _hidden(self, x):
+        """The residual stream at a block's start, sequence-sharded under
+        the sequence-parallel hints (``layers.constrain_hidden``, an
+        identity with none set).  Dense family only, as in JAX: MoE
+        dispatch and the VLM's prefix concatenation work against the
+        sequence-sharded layout."""
+        return L.constrain_hidden(x) if self.cfg.family == "dense" else x
+
     def _block(self, blk: Block, x, positions, impl):
         """One block of the teacher-forced forward: (x, its aux loss, f32,
         0 for a dense FFN).  It returns the aux loss rather than collecting
         it, so a rematerialized block adds it once."""
+        x = self._hidden(x)
         q, k, v = self._qkv(blk, x, positions)
         o = L.attention(q, k, v, q_positions=positions,
                         kv_positions=positions, causal=True,
@@ -183,7 +192,7 @@ class TransformerLM(nn.Module):
         not, as in JAX."""
         cfg = self.cfg
         impl = impl or cfg.attention_impl
-        x = self.embed[tokens]
+        x = L.embed_lookup(self.embed, tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
@@ -240,7 +249,7 @@ class TransformerLM(nn.Module):
         slot ``p % T``."""
         cfg = self.cfg
         impl = impl or cfg.attention_impl
-        x = self.embed[tokens]
+        x = L.embed_lookup(self.embed, tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
@@ -249,14 +258,15 @@ class TransformerLM(nn.Module):
         T = self.cache_capacity(S)
         ks, vs = [], []
         for blk in self.blocks:
+            x = self._hidden(x)
             q, k, v = self._qkv(blk, x, positions)
             o = L.attention(q, k, v, q_positions=positions,
                             kv_positions=positions, causal=True,
                             window=cfg.swa_window, impl=impl)
             x, _ = self._finish_block(blk, x, o)
             if T < S:
-                k = torch.roll(k[:, S - T:], shifts=S % T, dims=1)
-                v = torch.roll(v[:, S - T:], shifts=S % T, dims=1)
+                k = L.roll_time(k[:, S - T:], S % T)
+                v = L.roll_time(v[:, S - T:], S % T)
             ks.append(k)
             vs.append(v)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -291,7 +301,7 @@ class TransformerLM(nn.Module):
         B, Ssuf = tokens.shape
         dev = tokens.device
         pos0 = cache["length"]                               # (B,)
-        x = self.embed[tokens]
+        x = L.embed_lookup(self.embed, tokens)
         positions = (pos0[:, None] + torch.arange(
             Ssuf, dtype=torch.int32, device=dev)[None, :]).contiguous()
         T = cache["k"].shape[2]
@@ -301,6 +311,7 @@ class TransformerLM(nn.Module):
         batch_ix = torch.arange(B, device=dev)[:, None]
         slots = positions.long()
         for i, blk in enumerate(self.blocks):
+            x = self._hidden(x)
             q, k, v = self._qkv(blk, x, positions)
             k_cache, v_cache = cache["k"][i], cache["v"][i]
             k_cache[batch_ix, slots] = k
@@ -343,12 +354,12 @@ class TransformerLM(nn.Module):
         slot = torch.remainder(pos, T).long()
         kv_pos = self._kv_slot_positions(pos, T).contiguous()
         batch_ix = torch.arange(B, device=token.device)
-        x = self.embed[token][:, None, :]                    # (B,1,D)
+        x = L.embed_lookup(self.embed, token)[:, None, :]      # (B,1,D)
         for i, blk in enumerate(self.blocks):
             q, k, v = self._qkv(blk, x, pos[:, None])
             k_cache, v_cache = cache["k"][i], cache["v"][i]
-            k_cache[batch_ix, slot] = k[:, 0]
-            v_cache[batch_ix, slot] = v[:, 0]
+            L.write_slots_(k_cache, batch_ix, slot, k[:, 0])
+            L.write_slots_(v_cache, batch_ix, slot, v[:, 0])
             o = L.attention(q, k_cache, v_cache, q_positions=pos[:, None],
                             kv_positions=kv_pos, causal=True,
                             window=cfg.swa_window, impl=impl)
@@ -402,7 +413,7 @@ class TransformerLM(nn.Module):
         pos = lengths.to(torch.int32).contiguous()
         page_table = page_table.to(torch.int32).contiguous()
         posc = pos.clamp(min=0)
-        x = self.embed[token][:, None, :]                    # (B,1,D)
+        x = L.embed_lookup(self.embed, token)[:, None, :]      # (B,1,D)
         variant = (variant or pd_ops.DEFAULT_VARIANT) if impl == "cuda" \
             else None
         fused = variant == "fused"

@@ -27,7 +27,9 @@ products in the input's dtype, in the JAX package's order, rather than
 calling ``F.conv1d``: cuDNN would run an f32 convolution in TF32 and sum
 in another order.  The sequence loops collect each step's output and stack
 them (no slice writes into a preallocated buffer), so autograd runs
-through them unchanged; ``loss_fn`` trains through ``forward_train``,
+through them unchanged; they walk time through ``cost_hooks.steps`` (a
+``range`` outside the op-cost counter, one step counted S times under
+it).  ``loss_fn`` trains through ``forward_train``,
 rematerializing each pair with ``remat`` as the JAX package checkpoints
 its scanned pairs.
 """
@@ -42,6 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.cost_hooks import steps, steps_out
 from repro_torch.engine.models import layers as L
 
 Cache = Dict[str, torch.Tensor]
@@ -55,7 +58,7 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B,S,D); w: (W,D) depthwise taps.  Output (B,S,D)."""
     W = w.shape[0]
     S = x.shape[1]
-    pad = F.pad(x, (0, 0, W - 1, 0))
+    pad = L.pad_time(x, W - 1)
     out = torch.zeros_like(x)
     for t in range(W):                         # W is tiny (4): unrolled
         out = out + pad[:, t:t + S] * w[t][None, None, :]
@@ -99,21 +102,23 @@ def mlstm_step(state, q, k, v, i_pre, f_pre):
     q, k, v: (B,H,Dh); i_pre, f_pre: (B,H) pre-activations.
     Returns (new state, h (B,H,Dh) f32)."""
     return _mlstm_update(state, q.float(), k.float(), v.float(),
-                         i_pre.float(), F.logsigmoid(f_pre.float()))
+                         i_pre.float(), L.log_sigmoid(f_pre.float()))
 
 
 def mlstm_sequence(q, k, v, i_pre, f_pre, state):
     """q, k, v: (B,S,H,Dh); gates (B,S,H).  Steps over time; returns
     (final state, hs (B,S,H,Dh) f32)."""
+    q, k, v, i_pre, f_pre = map(L.constrain_rows, (q, k, v, i_pre, f_pre))
     q32, k32, v32 = q.float(), k.float(), v.float()
     i32 = i_pre.float()
-    log_f = F.logsigmoid(f_pre.float())                    # all steps at once
+    log_f = L.log_sigmoid(f_pre.float())                    # all steps at once
     hs = []
-    for t in range(q.shape[1]):
+    S = q.shape[1]
+    for t in steps(S):
         state, h = _mlstm_update(state, q32[:, t], k32[:, t], v32[:, t],
                                  i32[:, t], log_f[:, t])
         hs.append(h)
-    return state, torch.stack(hs, dim=1)
+    return state, torch.stack(steps_out(hs, S), dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +138,7 @@ def _slstm_update(state, pre, r_cat):
     z_t = torch.tanh(g[0])
     i_t = g[1]
     o_t = torch.sigmoid(g[3])
-    a = F.logsigmoid(g[2]) + m
+    a = L.log_sigmoid(g[2]) + m
     m_new = torch.maximum(a, i_t)
     f_sc = torch.exp(a - m_new)
     i_sc = torch.exp(i_t - m_new)
@@ -167,13 +172,15 @@ def slstm_step(state, x_gates, r_w):
 def slstm_sequence(x_gates, r_w, state):
     """x_gates: (B,S,4D).  Steps over time; returns (final state, hs
     (B,S,D) f32)."""
-    pre = _gate_major(x_gates).permute(2, 0, 1, 3).contiguous()  # (S,4,B,D)
+    pre = _gate_major(L.constrain_rows(x_gates)).permute(
+        2, 0, 1, 3).contiguous()                                 # (S,4,B,D)
     r_cat = _recurrent_matrix(r_w)
     hs = []
-    for t in range(x_gates.shape[1]):
+    S = x_gates.shape[1]
+    for t in steps(S):
         state, h = _slstm_update(state, pre[t], r_cat)
         hs.append(h)
-    return state, torch.stack(hs, dim=1)
+    return state, torch.stack(steps_out(hs, S), dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +353,7 @@ class XLSTMLM(nn.Module):
     def _run_prompt(self, tokens):
         """Every pair over the prompt from the zero state: (final-normed
         x, per-pair states)."""
-        x = self.embed[tokens]
+        x = L.embed_lookup(self.embed, tokens)
         zero = self._zero_state(x.shape[0])
         states = []
         for pair in self.pairs:
@@ -371,7 +378,7 @@ class XLSTMLM(nn.Module):
         """The teacher-forced forward with its graph, every pair from the
         zero state: (logits, aux 0); ``remat`` rematerializes each pair in
         the backward."""
-        x = self.embed[tokens]
+        x = L.embed_lookup(self.embed, tokens)
         zero = self._zero_state(x.shape[0])
         for pair in self.pairs:
             if remat:
@@ -409,7 +416,7 @@ class XLSTMLM(nn.Module):
         state goes into the cache's tensors IN PLACE.  Returns (logits
         (B,Vpad), a new dict of the same tensors with ``length + 1``)."""
         cfg = self.cfg
-        x = self.embed[token]                                  # (B,D)
+        x = L.embed_lookup(self.embed, token)                  # (B,D)
         for i, pair in enumerate(self.pairs):
             mp, sp = pair.mlstm, pair.slstm
             st = {k: cache[k][i] for k in self.STATE}

@@ -2,8 +2,9 @@
 
 For CUDA tensors it launches ``csrc/flash_attention.cu`` on the current
 stream and counts the launch in ``launches``; for CPU tensors it runs the
-plain version in ``ref.py``.  There is no fallback: a CUDA call the
-kernel cannot take raises.
+plain version in ``ref.py``; for meta tensors it gives the result's shape
+and charges the kernel's work to the op-cost counter (``cost_hooks``).
+There is no fallback: a CUDA call the kernel cannot take raises.
 
 The kernel has two bodies and the wrapper picks one by the rule in
 ``uses_tensor_cores``: bfloat16 at Dh 64, 128 or 256 runs on the tensor
@@ -30,6 +31,7 @@ import threading
 
 import torch
 
+from repro_torch import cost_hooks
 from repro_torch.kernels import build
 from repro_torch.kernels.common import launch_on, sm_count
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
@@ -134,7 +136,7 @@ def _check(q, k, v, q_positions, kv_positions):
     tensors = (q, k, v, q_positions, kv_positions)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("flash_attention: inputs on different devices")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention: inputs must be contiguous")
@@ -147,6 +149,14 @@ def _launch(q, k, v, q_positions, kv_positions, causal, window, lse=None):
     Skv, Hkv = k.shape[1], k.shape[2]
     if Dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {Dh} not in {HEAD_DIMS}")
+    if q.device.type == "meta":
+        # q, k, v and the positions read once, the output (and lse)
+        # written once; QK^T and PV over the pairs the mask leaves
+        out = torch.empty_like(q)
+        cost_hooks.charge(
+            4 * Dh * H * B * cost_hooks.visible_pairs(Sq, Skv, causal, window),
+            _nbytes(q, k, v, q_positions, kv_positions, out, lse))
+        return out
     tc = uses_tensor_cores(q.dtype, Dh)
     if tc and (q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16):
         raise ValueError("flash_attention: bf16 q, k, v must be 16-byte "
@@ -161,6 +171,11 @@ def _launch(q, k, v, q_positions, kv_positions, causal, window, lse=None):
     build.check(err, "flash_attention_fwd")
     _count(tc)
     return out
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def _check_bwd_shape(q, k):
@@ -197,6 +212,18 @@ def flash_attention_bwd(q, k, v, dout, lse, *, q_positions, kv_positions,
     if dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError("flash_attention backward: dout in q's dtype, lse "
                         "float32")
+    if q.device.type == "meta":
+        # q, k, v, dout, lse and the positions read once, dq, dk, dv
+        # written once; five products over the pairs the mask leaves (S
+        # again, dP, dV, dK, dQ)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+            torch.empty_like(v)
+        cost_hooks.charge(
+            10 * Dh * H * B
+            * cost_hooks.visible_pairs(Sq, Skv, causal, window),
+            _nbytes(q, k, v, dout, lse, q_positions, kv_positions, dq, dk,
+                    dv))
+        return dq, dk, dv
     tc = bwd_uses_tensor_cores(q.dtype, Dh)
     if tc and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError("flash_attention backward: bf16 q, k, v, dout must "

@@ -7,8 +7,10 @@ variants of the JAX package: ``single`` (stages of one page), ``blocked``
 bitwise equal to scatter-then-attend).  For CUDA tensors the wrappers
 launch it on the current stream and count each launch in ``launches``
 and in ``variant_launches`` under the variant it ran; for CPU tensors
-they run the plain versions in ``ref.py``.  There is no fallback: a
-CUDA call the kernel cannot take raises.
+they run the plain versions in ``ref.py``; for meta tensors they give
+the results' shapes and charge the kernel's work to the op-cost counter
+(``cost_hooks``).  There is no fallback: a CUDA call the kernel cannot
+take raises.
 
 The kernel splits a row's pages across blocks (flash-decoding over
 pages).  ``plan_chunk_pages`` fixes the chunk from the page size and Dh
@@ -26,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import cost_hooks
 from repro_torch.kernels import build
 from repro_torch.kernels.common import launch_on, refuse_grad
 from repro_torch.kernels.paged_decode_attention.ref import (
@@ -155,6 +158,8 @@ def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, ppb,
     the same.  Returns out at q's shape, the f32 buffer that holds m and
     l after ``n_part`` partial values, and ``n_part``."""
     refuse_grad("paged_decode_attention", q, k_pages, v_pages, k_new, v_new)
+    if q.device.type == "meta":
+        return _on_meta(q, k_pages, page_table, k_new)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")
@@ -208,6 +213,26 @@ def _launch(q, k_pages, v_pages, page_table, lengths, k_new, v_new, ppb,
     build.check(err, "paged_decode_attention_fwd")
     _count(n_split > 1, variant)
     return out, buf, n_part
+
+
+def _on_meta(q, k_pages, page_table, k_new):
+    """``_launch``'s results on meta tensors, the kernel's work charged:
+    the lengths are not known there, so every slot the table names is
+    read (as a row as long as the table reads them), K and V; q read and
+    the output written, m and l written, the table and the lengths read,
+    and (fused) the new K/V read and written into the pool.  QK^T and PV
+    over those slots."""
+    B, H, Dh = q.shape[0], q.shape[-2], q.shape[-1]
+    _, ps, Hkv, _ = k_pages.shape
+    slots = page_table.numel() * ps
+    elem = k_pages.element_size()
+    nbytes = 2 * slots * Hkv * Dh * elem + 2 * q.numel() * q.element_size() \
+        + 2 * B * H * 4 + 4 * (page_table.numel() + B)
+    if k_new is not None:
+        nbytes += 2 * 2 * k_new.numel() * elem
+    cost_hooks.charge(4 * H * Dh * slots, nbytes)
+    return (torch.empty_like(q),
+            torch.empty(2 * B * H, dtype=torch.float32, device=q.device), 0)
 
 
 def _lse(buf, n_part, B, H):

@@ -14,10 +14,15 @@ order and rounding, so the kernel equals it bitwise
 (``tests/test_torch_cuda.py``); it also equals ``linear_scan_ref`` over
 the time-reversed ``(a shifted by one, dh)`` bit for bit
 (``tests/test_torch_backward_tiles.py``).
+
+Both walk time through ``cost_hooks.steps``: ``range`` outside the op-cost
+counter, one step counted S times under it.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.cost_hooks import steps
 
 
 def linear_scan_ref(a, b, h0=None):
@@ -27,7 +32,7 @@ def linear_scan_ref(a, b, h0=None):
     h = torch.zeros((B, D), dtype=a.dtype, device=a.device) \
         if h0 is None else h0
     out = torch.empty_like(a)
-    for t in range(S):
+    for t in steps(S):
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
@@ -42,7 +47,8 @@ def linear_scan_bwd_ref(a, h, dh):
     g = torch.zeros((B, D), dtype=a.dtype, device=a.device)
     a_next = torch.zeros_like(g)
     da, db = torch.empty_like(a), torch.empty_like(a)
-    for t in range(S - 1, -1, -1):
+    for i in steps(S):
+        t = S - 1 - i
         g = a_next * g + dh[:, t]
         db[:, t] = g
         da[:, t] = g * (h[:, t - 1] if t else torch.zeros_like(g))

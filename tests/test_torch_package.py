@@ -74,7 +74,9 @@ def test_every_module_imports_without_jax():
               "repro_torch.training.data", "repro_torch.launch.train",
               "repro_torch.launch.mesh", "repro_torch.distribution",
               "repro_torch.distribution.sharding",
-              "repro_torch.distribution.collectives"):
+              "repro_torch.distribution.collectives",
+              "repro_torch.launch.op_cost", "repro_torch.launch.dryrun",
+              "repro_torch.launch.roofline", "repro_torch.cost_hooks"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
@@ -108,6 +110,9 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert PKG / "launch" / "mesh.py" in sources
     for mod in ("__init__", "sharding", "collectives"):
         assert PKG / "distribution" / f"{mod}.py" in sources, mod
+    for mod in ("op_cost", "dryrun", "roofline"):
+        assert PKG / "launch" / f"{mod}.py" in sources, mod
+    assert PKG / "cost_hooks.py" in sources
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -238,6 +243,20 @@ def test_training_imports_no_jax():
                    timeout=120, capture_output=True)
 
 
+def test_dry_run_imports_no_jax():
+    """The dry run, its counter and the roofline import no JAX and nothing
+    of the JAX package, and importing them opens no process group."""
+    code = ("import sys\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
+                   timeout=120, capture_output=True)
+
+
 def test_registry_holds_the_ported_config_only():
     """The registry holds the JAX package's ten archs, each equal to its
     config (full and smoke), and nothing else: an arch name neither
@@ -293,3 +312,22 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_models_and_kernels_do_not_import_the_launch_layer():
+    """The models and kernels reach the op-cost counter through
+    ``repro_torch.cost_hooks`` only: nothing under ``engine/models/`` or
+    ``kernels/`` imports ``repro_torch.launch``."""
+    offenders = []
+    for sub in (PKG / "engine" / "models", PKG / "kernels"):
+        for path in sub.rglob("*.py"):
+            for node in ast.walk(ast.parse(path.read_text())):
+                if isinstance(node, ast.ImportFrom):
+                    names = [node.module or ""]
+                elif isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                else:
+                    continue
+                offenders += [f"{path}:{node.lineno}: {n}" for n in names
+                              if n.startswith("repro_torch.launch")]
+    assert not offenders, offenders
