@@ -50,7 +50,14 @@ each:
    batch invariance in bf16 and on a float32 copy (logged: cuBLAS may
    pick its GEMM by the row count); then the same model on the
    dense-view arm (``paged_decode=False``), which decodes in the
-   decode_attention kernel;
+   decode_attention kernel; then the paged kernel's per-shape table
+   (``[kernels.paged_table]``): its provenance against this card and
+   power limit (printed), each key's winner, the built-in default and
+   every distinct candidate of the sweep re-timed as the sweep times
+   them (the winner at most 1.25 x the best), and the engine's decode
+   with no variant given, which must launch the table's variant only
+   and give the greedy tokens of an engine pinned to another variant;
+   every engine phase's paged launches must be the table's variant;
 5. hybrid: full-width recurrentgemma-2b served through the engine's
    dense-row path (flash prefill at Dh=256, the RG-LRU scan, decode
    attention over the ring), its step profile and parity, batch
@@ -146,7 +153,8 @@ each:
    cores; ``.profile`` one step) and ``[train.audio]`` (whisper-tiny,
    3 steps over 1500 frames: causal, non-causal and cross backward);
 13. the roofline on the card (``[roofline.card]``): qwen3-1.7b's paged
-   decode step (B=8) and chunk prefill, timed in 4., and
+   decode step (B=8, in the variant the table names, which its line
+   prints) and chunk prefill, timed in 4., and
    ``[train.qwen3]``'s step, each counted by the port's op-cost counter
    (``repro_torch.launch.op_cost``) on meta tensors at its shapes as the
    card runs it (the hand kernels charge their own traffic): the bound
@@ -163,7 +171,8 @@ each:
    full-attention archs at long_500k; each cell's roofline row, the
    2 x 16 x 16 cells done in the budget (``SWEEP_BUDGET_S``), the
    sweep's seconds;
-15. the wall time, a ``{"kernels": [...]}`` line (the paged kernel's
+15. the wall time (and each section's seconds, ``[phase]``, as it ends),
+   a ``{"kernels": [...]}`` line (the paged kernel's
    single and blocked arms as entries of their own; the two backward
    kernels last), the card's ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -201,6 +210,20 @@ PEAKS_OF = "H100 SXM (3.35 TB/s HBM3, 989 TFLOP/s bf16, 67 TFLOP/s f32)"
 def log(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
+
+
+class PhaseClock:
+    """Each section's seconds, ``[phase] name=... s=... total_s=...``, the
+    total counted from the script's start."""
+
+    def __init__(self, t_start: float):
+        self.t0 = self.t = t_start
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        log("phase", name=name, s=f"{now - self.t:.3f}",
+            total_s=f"{now - self.t0:.3f}")
+        self.t = now
 
 
 def nvidia_smi_line() -> str:
@@ -2024,13 +2047,25 @@ def paged_variant_counts(pd_ops):
     return {f"paged_{v}": n for v, n in pd_ops.variant_launches.items()}
 
 
+def table_config(pd_ops, eng):
+    """What the paged kernel's per-shape table names for an engine's pool
+    and head grouping: {"variant", "pages_per_block"}; the engine's
+    decode launches it where ``kernel_variant`` is None."""
+    cfg = eng.cfg
+    return pd_ops.kernel_config(eng.page_size, cfg.num_kv_heads,
+                                eng.model.head_dim,
+                                cfg.num_heads // cfg.num_kv_heads)
+
+
 def serve_checked(torch, eng, prompts, max_new, requests, fa_ops, pd_ops,
                   plain_calls, extras=None, kinds=None):
     """The main path's run of an engine phase: ``requests`` (first, late)
     served with the launch counts set to 0 just before and read just
     after.  Checks every output's length, the flash and paged launches, every
-    bf16 flash launch on the tensor cores, a split paged launch where a
-    table passed one chunk, and no plain version.  Returns (outputs,
+    bf16 flash launch on the tensor cores, every paged launch in the variant
+    the paged kernel's table names for the engine (``table_config``) or its
+    ``kernel_variant``, a split paged launch where a table passed one
+    chunk, and no plain version.  Returns (outputs,
     launches, step seconds, admission seconds, run seconds)."""
     step_s, admit_s, undo = time_engine(eng, kinds=kinds)
     n_plain = plain_calls["n"]
@@ -2053,8 +2088,9 @@ def serve_checked(torch, eng, prompts, max_new, requests, fa_ops, pd_ops,
         and launches["paged_decode_attention"] > 0, launches
     assert launches["flash_tensor_core"] == launches["flash_attention"], \
         "a bf16 flash launch missed the tensor cores"
-    assert launches["paged_fused"] == launches["paged_decode_attention"], \
-        "the engine decoded through an attend-only arm"
+    want = eng.kernel_variant or table_config(pd_ops, eng)["variant"]
+    assert launches[f"paged_{want}"] == launches["paged_decode_attention"], \
+        f"the engine decoded through another variant than {want}"
     assert eng.stats.widest_decode_table > chunk \
         and launches["paged_split"] > 0, \
         "no paged launch split though a table passed one chunk"
@@ -4592,6 +4628,93 @@ def dryrun_sweep_phase(sweep: DryrunSweep, deadline_s: float):
     return by_mesh
 
 
+PAGED_TABLE_PROMPTS = ("cold_c", "share_a", "share_b", "cold_d")
+PAGED_TABLE_NEW = 8
+PAGED_TABLE_SLACK = 1.25    # a winner re-timed slower than this x the best
+
+
+def paged_table_phase(torch, eng, prompts, pd_ops, smi, InferenceEngine):
+    """[kernels.paged_table]: the paged kernel's checked-in table
+    (``autotune.json``, the sweep's output, ``tune.py``), read as
+    ``kernel_config`` reads it (``pd_ops.table()``): its provenance and
+    whether it was swept on this card at this power limit (printed: a
+    stale table is slower, not wrong); at each key the winner, the
+    built-in default (``fused`` at ``DEFAULT_PAGES_PER_BLOCK``) and every
+    distinct candidate of the sweep (``tune.candidates``) re-timed under
+    the sweep's method, the winner no more than ``PAGED_TABLE_SLACK``
+    times the best of them at its own key; then a qwen3 engine on
+    ``eng``'s weights with ``kernel_variant=None`` (the table) must
+    launch, counted from 0, the table's variant and nothing else, and
+    give the greedy tokens of an engine on the same weights pinned to
+    another variant (``single``, or ``fused`` where the table names
+    ``single``): the variants are bitwise equal.  Each engine is freed
+    before the next."""
+    from repro_torch.kernels.paged_decode_attention import tune
+    t0 = time.perf_counter()
+    table = pd_ops.table()
+    prov = table["_provenance"]
+    log("kernels.paged_table", table="src/repro_torch/kernels/"
+        "paged_decode_attention/autotune.json",
+        swept_on=json.dumps(prov["card"]), this_card=json.dumps(smi),
+        same_card_and_limit=prov["card"] == smi, date=prov["date"],
+        torch=prov["torch"], cuda=prov["cuda"],
+        command=json.dumps(prov["command"]))
+    default = {"variant": pd_ops.DEFAULT_VARIANT,
+               "pages_per_block": pd_ops.DEFAULT_PAGES_PER_BLOCK}
+    for key, shape in tune.paged_shapes().items():
+        ps, dh = shape["page_size"], shape["head_dim"]
+        win = pd_ops.kernel_config(ps, shape["kv_heads"], dh, shape["group"])
+        cands = [tune.candidate(c["variant"], c["pages_per_block"], ps, dh,
+                                name)
+                 for name, c in (("winner", win), ("default", default))]
+        cands += tune.candidates(ps, dh)
+        timed = tune.time_key(shape, cands)
+        score = {k: r["score_ms"] for k, r in timed.items()}
+        best = min(score, key=score.get)
+        over_best = score["winner"] / score[best]
+        log("kernels.paged_table", key=key, archs=",".join(shape["archs"]),
+            winner=tune.label(win["variant"], win["pages_per_block"]),
+            winner_stage=cands[0]["stage"],
+            default=tune.label(default["variant"],
+                               default["pages_per_block"]),
+            default_stage=cands[1]["stage"],
+            winner_ms=json.dumps({g: round(ms, 4) for g, ms in
+                                  timed["winner"]["ms"].items()}),
+            score_ms=json.dumps({k: round(v, 4) for k, v in score.items()}),
+            best=best, winner_over_best=f"{over_best:.4f}",
+            winner_over_default=f"{score['winner'] / score['default']:.4f}",
+            swept_score_ms=json.dumps({
+                k: round(r["score_ms"], 4)
+                for k, r in table["sweep"].get(key, {}).items()}))
+        assert over_best <= PAGED_TABLE_SLACK, (key, best, over_best)
+    want = table_config(pd_ops, eng)
+    other = "fused" if want["variant"] == "single" else "single"
+    toks = [prompts[n] for n in PAGED_TABLE_PROMPTS]
+    runs = {}
+    for arm in (None, other):
+        e = InferenceEngine(eng.cfg, seed=0, kernel_variant=arm)
+        e.load(eng.model.state_dict())
+        pd_ops.reset_counts()
+        out = e.generate(toks, max_new_tokens=PAGED_TABLE_NEW)
+        e.drain()
+        runs[arm] = (out, dict(pd_ops.variant_launches))
+        free_engine(torch, e)
+    (table_out, table_n), (other_out, other_n) = runs[None], runs[other]
+    assert sum(table_n.values()) > 0 \
+        and table_n[want["variant"]] == sum(table_n.values()), \
+        (want, table_n)
+    assert other_n[other] == sum(other_n.values()) > 0, other_n
+    assert table_out == other_out, \
+        f"the table's variant and {other} gave different tokens"
+    log("kernels.paged_table", engine="qwen3-1.7b(full width)",
+        requests=len(toks), tokens_each=PAGED_TABLE_NEW,
+        table_config=json.dumps(want),
+        variant_launches=json.dumps(table_n), other_arm=other,
+        other_arm_variant_launches=json.dumps(other_n),
+        tokens_equal_other_arm=True, s=f"{time.perf_counter() - t0:.3f}")
+    return {"config": want, "variant_launches": table_n}
+
+
 def count_steps(torch, cfg, dec, pf, tr):
     """``op_cost``'s counts of three of ``cfg``'s steps on meta with no
     mesh, as the card runs them (``attention_impl="cuda"``: each hand
@@ -4600,7 +4723,9 @@ def count_steps(torch, cfg, dec, pf, tr):
     dtype), every slot the table names charged, the chunk prefill of S
     tokens into a (1, T) view (``pf``), and the remat train step on (B,
     S) tokens (``tr``).  Needs no card.  Returns the counts and the
-    paged layout (layers, KV heads, Dh)."""
+    paged layout (layers, KV heads, Dh).  The decode step takes the
+    variant the paged kernel's table names (no ``variant`` given): the
+    one the card's engine launches."""
     from repro_torch.engine.models import build_model
     from repro_torch.launch.op_cost import analyze_ops
     from repro_torch.training import AdamWConfig, TrainerConfig
@@ -4644,6 +4769,7 @@ def roofline_card_phase(torch, get_config, engine_profile, engine_shapes,
     arithmetic on a one-device mesh and the card's peak (logged)."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.configs.base import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.kernels.paged_decode_attention import ops as pd_ops
     from repro_torch.launch.dryrun import _activation_residency
     cfg = get_config("qwen3-1.7b")
     measured = {("decode" if what.startswith("decode") else "prefill"):
@@ -4669,6 +4795,8 @@ def roofline_card_phase(torch, get_config, engine_profile, engine_shapes,
         named - valid)
     shapes["decode"].update(slots_named=named, slots_held=held,
                             keys_attended=valid)
+    kc = pd_ops.kernel_config(ps, Hkv, Dh, cfg.num_heads // Hkv)
+    paged_variant = f"{kc['variant']}@{kc['pages_per_block']}"
     n = cfg.active_param_count()
     tokens = {"decode": B, "prefill": S_pf, "train": B_tr * S_tr}
     shares = {}
@@ -4690,7 +4818,8 @@ def roofline_card_phase(torch, get_config, engine_profile, engine_shapes,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             device_busy_ms=f"{busy:.4f}", wall_ms=f"{wall:.4f}",
             share_bound_over_busy=f"{bound_ms / busy:.4f}",
-            peaks=PEAKS_OF)
+            peaks=PEAKS_OF,
+            **({"paged_variant": paged_variant} if kind == "decode" else {}))
     model_bytes = 2 * cfg.param_count()          # bf16 weights
     args = model_bytes + 2 * 4 * cfg.param_count() + 2 * 4 * B_tr * S_tr
     est = args + _activation_residency(
@@ -4736,6 +4865,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
+    clock = PhaseClock(t_start)
 
     # ------------------------------------------------------ 1. environment
     t0 = time.perf_counter()
@@ -4743,6 +4873,7 @@ def main() -> int:
     log("env", card=json.dumps(smi), torch=torch.__version__,
         cuda=torch.version.cuda, build_s=f"{build.build_seconds:.3f}",
         load_s=f"{time.perf_counter() - t0:.3f}")
+    clock.lap("env")
 
     # ---------------------------------------------------------- 2. kernels
     # hostile paged layout: shuffled pool, rows 0/1 alias their first two
@@ -4891,11 +5022,13 @@ def main() -> int:
     kernels[0]["mixtral_prefill"] = swa["prefill"]
     kernels[2]["mixtral_ring"] = swa["ring"]
     torch.cuda.empty_cache()
+    clock.lap("kernels")
 
     # ----------------------------------------------------- 3. shared prefix
     kernels.append(shared_prefix_full(torch, F, np, sp_ops, da_ops, pd_ops,
                                       prefix_attention_ref,
                                       shared_prefix_attention_ref))
+    clock.lap("kernels.shared_prefix.full")
 
     # ----------------------------------------------------------- 4. engine
     cfg = get_config("qwen3-1.7b")
@@ -4989,6 +5122,12 @@ def main() -> int:
 
     engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,
                       pd_ops, InferenceEngine)
+    clock.lap("engine")
+    # the paged kernel's per-shape table: re-timed, and followed by the
+    # engine's decode
+    kernels[1]["table"] = paged_table_phase(torch, eng, prompts, pd_ops, smi,
+                                            InferenceEngine)
+    clock.lap("kernels.paged_table")
     # free qwen3's weights and pool before the hybrid loads
     free_engine(torch, eng)
     del eng
@@ -5001,6 +5140,7 @@ def main() -> int:
     kernels[3]["launches"] = hyb["rglru_scan"]
     gc.collect()
     torch.cuda.empty_cache()
+    clock.lap("hybrid")
 
     # -------------------------------------------------------- 6. processor
     proc = processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
@@ -5012,11 +5152,13 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    clock.lap("processor")
 
     # ------------------------------------------------------ 7. the MoE family
     runs = {"moe": moe_phases(torch, np, get_config, tokenizer,
                               InferenceEngine, moe, fa_ops, pd_ops,
                               plain_calls)}
+    clock.lap("moe")
     # --------------------------------------------- 8. the rest of the dense
     # family, deepseek-67b cut to 40 of its 95 layers (58.7 GB in bf16)
     for arch, key, depth in (("qwen3-8b", "qwen3_8b", None),
@@ -5025,6 +5167,7 @@ def main() -> int:
         runs[key] = dense_family_phase(
             torch, np, arch, get_config, tokenizer, InferenceEngine, fa_ops,
             pd_ops, da_ops, plain_calls, layers=depth)
+    clock.lap("dense")
     families = (torch, np, get_config, tokenizer, InferenceEngine,
                 build_model, fa_ops, pd_ops, da_ops, plain_calls)
     # ------------------------------ 9. sliding-window attention: mixtral
@@ -5034,10 +5177,12 @@ def main() -> int:
         mixtral["flash_tensor_core"]
     kernels[2]["mixtral_launches"] = mixtral["decode_attention"]
     kernels[2]["mixtral_split_launches"] = mixtral["decode_split"]
+    clock.lap("swa")
     # ------------------------ 10. the VLM, the ssm and the encoder-decoder
     runs["vlm"] = vlm_phases(*families)
     ssm_phases(*families)
     audio = audio_phases(*families)
+    clock.lap("vlm.ssm.audio")
     for key, r in runs.items():
         kernels[0][f"{key}_launches"] = r["flash_attention"]
         kernels[0][f"{key}_tensor_core_launches"] = r["flash_tensor_core"]
@@ -5051,8 +5196,8 @@ def main() -> int:
     kernels[2]["audio_launches"] = audio["decode_attention"]
     kernels[2]["audio_split_launches"] = audio["decode_split"]
     # the attend-only arms' launches as counted in each path's run (the
-    # engines decode fused: kernel_variant="single"/"blocked" is an option
-    # no path here takes)
+    # engines decode in the variant the paged kernel's table names:
+    # fused at every paged key of the checked-in table)
     for e in arm_entries:
         count = "paged_" + e["name"].rsplit("_", 1)[1]
         e["launches"] = launches[count]
@@ -5068,6 +5213,7 @@ def main() -> int:
     kernels[2]["distribution"] = dist_res
     gc.collect()
     torch.cuda.empty_cache()
+    clock.lap("distribution")
 
     # ----------------------------------------------------- 12. training
     flash_bwd = kernels_flash_bwd(torch, F, fa_ops, flash_attention_bwd_ref,
@@ -5091,10 +5237,12 @@ def main() -> int:
     kernels.append(scan_bwd)
     gc.collect()
     torch.cuda.empty_cache()
+    clock.lap("training")
 
     # --------------------------------------------------- 13. roofline.card
     roofline_card_phase(torch, get_config, engine_profile, engine_shapes,
                         trained["qwen3_step"])
+    clock.lap("roofline.card")
 
     # --------------------------------------------------- 14. dryrun.sweep
     # after the last timed phase: the dry run needs no card, and its
@@ -5106,6 +5254,7 @@ def main() -> int:
     sweep = DryrunSweep(sweep_dir)
     atexit.register(sweep.kill)
     dryrun_sweep_phase(sweep, SWEEP_BUDGET_S)
+    clock.lap("dryrun.sweep")
 
     # ------------------------------------------------------ 15. the report
     log("done", wall_s=f"{time.perf_counter() - t_start:.3f}",

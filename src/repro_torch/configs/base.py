@@ -83,10 +83,18 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
+
+    @property
+    def is_recurrent(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def full_attention(self) -> bool:
         """True if the arch relies on unbounded dense self-attention (the
         ssm holds no attention, the hybrid's local windows are bounded)."""
-        if self.family in ("ssm", "hybrid"):
+        if self.is_recurrent:
             return False
         return self.swa_window == 0
 
@@ -130,7 +138,7 @@ class ModelConfig:
             else:
                 total += attn + (m.num_experts + m.num_shared_experts) \
                     * 3 * d * m.d_ff_expert + d * m.num_experts
-        if self.enc_layers:
+        if self.is_encdec:
             total += self.enc_layers * (2 * d + attn + 3 * d * self.d_ff)
             total += self.num_layers * (d + attn)
         return int(total)

@@ -11,9 +11,9 @@ transformers (the paged path):
 * the only KV store is the refcounted device-resident ``PagedKVCache``:
   prefill writes KV rows into pages on the device, and each decode step
   runs ``paged_decode_step`` straight over the pool (on the card: the
-  fused append+attend CUDA kernel).  Per step the host uploads O(batch)
-  ints (tokens, page tables, lengths) and downloads O(batch) sampled ids
-  in one sync;
+  paged CUDA kernel, in the variant its per-shape table names).  Per
+  step the host uploads O(batch) ints (tokens, page tables, lengths) and
+  downloads O(batch) sampled ids in one sync;
 * prompt prefixes found in the ``RadixPrefixTree`` are served by
   aliasing the donor's pages (copy-on-write guards partial pages) and
   chunk-prefilling only the unseen suffix;
@@ -221,8 +221,8 @@ class InferenceEngine:
         self.page_size = page_size
         self.max_seq_len = max_seq_len
         self.max_warm_sequences = max_warm_sequences
-        # paged-kernel variant override (None = the built-in default,
-        # fused); the A/B arms pin single or blocked
+        # paged-kernel variant override (None = the kernel's per-shape
+        # table, model.paged_kernel); the A/B arms pin a variant
         self.kernel_variant = kernel_variant
         # grace window (seconds): a fresh batch waits this long after the
         # LAST submission before admitting, so near-simultaneous arrivals
@@ -235,6 +235,12 @@ class InferenceEngine:
         # decode straight over the pages, or (dense rows, and the
         # paged_decode=False reference arm) over a dense view
         self._use_paged = bool(self._paged_layout) and paged_decode
+        # the paged kernel's (variant, pages_per_block), resolved once:
+        # kernel_variant, else the kernel's per-shape table at this pool
+        if self._use_paged:
+            kc = self.model.paged_kernel(page_size)
+            self._paged_kernel = (kernel_variant or kc["variant"],
+                                  kc["pages_per_block"])
         self.num_pages = num_pages or max(
             64, 2 * max_batch * -(-max_seq_len // page_size))
         self.kv: Optional[PagedKVCache] = None   # guarded-by: self._cv | engine-loop
@@ -946,7 +952,8 @@ class InferenceEngine:
         self.stats.h2d_bytes += pt.nbytes + lens.nbytes + tokens.nbytes
         logits, _, _ = self.model.paged_decode_step(
             self._tokens(tokens), kv.k, kv.v, self._tokens(pt),
-            self._tokens(lens), variant=self.kernel_variant)
+            self._tokens(lens), variant=self._paged_kernel[0],
+            pages_per_block=self._paged_kernel[1])
         kv.commit_appends([s.seq_id for s in slots])
         for s in slots:
             s.length += 1

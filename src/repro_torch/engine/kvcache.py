@@ -262,6 +262,9 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         v = self.v[:, idx].reshape(L, -1, H, D)
         return k[:, :e.length], v[:, :e.length]
 
+    def page_table(self, seq_id: int) -> List[int]:
+        return list(self.sequences[seq_id].page_ids)
+
     # --------------------------------------------------------- migration
     def export_sequence(self, seq_id: int,
                         length: Optional[int] = None
@@ -295,3 +298,12 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         e = self.sequences.pop(seq_id)
         for p in e.page_ids:
             self._unref_page(p)
+
+    # --------------------------------------------------------------- sizing
+    def hbm_bytes(self, dtype_bytes: Optional[int] = None) -> int:
+        """The pools' bytes on the device, at the pool's own element width
+        unless ``dtype_bytes`` is given."""
+        if dtype_bytes is None:
+            dtype_bytes = self.dtype.itemsize
+        return 2 * self.num_layers * self.num_pages * self.page_size \
+            * self.kv_heads * self.head_dim * dtype_bytes

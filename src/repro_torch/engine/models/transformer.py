@@ -384,7 +384,8 @@ class TransformerLM(nn.Module):
     def paged_decode_step(self, token: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, page_table: torch.Tensor,
                           lengths: torch.Tensor, impl: Optional[str] = None,
-                          variant: Optional[str] = None
+                          variant: Optional[str] = None,
+                          pages_per_block: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
         """One autoregressive step straight over the page pool.
@@ -394,13 +395,19 @@ class TransformerLM(nn.Module):
         order, zero-padded); lengths: (B,) int32 with -1 for padded rows.
         Each layer lands the new token's KV at ``(page_table[b, len //
         page], len % page)`` IN PLACE and attends over the row's pages.
-        Under ``impl="cuda"`` the kernel ``variant`` (None = ``fused``)
-        picks how: ``fused`` appends inside the attention kernel;
-        ``single``/``blocked`` scatter first, then attend.  Under
-        ``impl="torch"`` the step scatters and gathers densely.  Padded
-        rows write nothing (they are masked out of the scatter) and are
-        fully masked.  Returns ``(logits (B, Vpad), k_pages, v_pages)``,
-        the pools being the tensors passed in.
+        Under ``impl="cuda"`` the kernel ``variant`` picks how: ``fused``
+        appends inside the attention kernel; ``single``/``blocked``
+        scatter first, then attend.  With no ``variant`` the paged
+        kernel's table picks it and its ``pages_per_block``
+        (``pd_ops.kernel_config`` at this pool's page size, KV heads,
+        Dh and grouping); an explicit ``variant`` runs at the caller's
+        ``pages_per_block`` (None: the wrapper's default).  The engine
+        resolves the table once and passes both.  Under ``impl="torch"`` the step
+        scatters and gathers densely.  The scatter makes no host sync
+        (``pd_ops.append_targets``), so the step runs on meta tensors
+        under every variant.  Padded rows write nothing and are fully
+        masked.  Returns ``(logits (B, Vpad), k_pages, v_pages)``, the
+        pools being the tensors passed in.
         """
         cfg = self.cfg
         impl = impl or cfg.attention_impl
@@ -414,16 +421,16 @@ class TransformerLM(nn.Module):
         page_table = page_table.to(torch.int32).contiguous()
         posc = pos.clamp(min=0)
         x = L.embed_lookup(self.embed, token)[:, None, :]      # (B,1,D)
-        variant = (variant or pd_ops.DEFAULT_VARIANT) if impl == "cuda" \
-            else None
+        if impl == "cuda":
+            ppb = pages_per_block
+            if variant is None:
+                kc = self.paged_kernel(ps)
+                variant, ppb = kc["variant"], kc["pages_per_block"]
+        else:
+            variant = None
         fused = variant == "fused"
         if not fused:
-            # padding rows are masked out of the scatter (torch has no
-            # out-of-bounds drop mode); one host sync per step, not per
-            # layer
-            rows = torch.nonzero(pos >= 0).squeeze(1)
-            w_page = page_table[rows, (posc[rows] // ps).long()].long()
-            w_off = (posc[rows] % ps).long()
+            targets = pd_ops.append_targets(page_table, pos, ps)
         if impl == "torch":
             t_idx = torch.arange(T, dtype=torch.int32, device=dev)[None, :]
             kv_pos = torch.where(t_idx <= pos[:, None], t_idx, -1)
@@ -435,13 +442,15 @@ class TransformerLM(nn.Module):
             v_t = v[:, 0].to(vp_l.dtype).contiguous()
             if fused:
                 o, _, _ = pd_ops.fused_paged_decode_attention(
-                    q, kp_l, vp_l, page_table, pos, k_t, v_t)
+                    q, kp_l, vp_l, page_table, pos, k_t, v_t,
+                    pages_per_block=ppb)
             else:
-                kp_l[w_page, w_off] = k_t[rows]
-                vp_l[w_page, w_off] = v_t[rows]
+                pd_ops.append_rows_(kp_l, targets, k_t)
+                pd_ops.append_rows_(vp_l, targets, v_t)
                 if impl == "cuda":
                     o = pd_ops.paged_decode_attention(
-                        q, kp_l, vp_l, page_table, pos, variant=variant)
+                        q, kp_l, vp_l, page_table, pos, variant=variant,
+                        pages_per_block=ppb)
                 else:
                     Hkv, Dh = cfg.num_kv_heads, self.head_dim
                     kd = kp_l[pt_long].reshape(B, T, Hkv, Dh).to(self.dtype)
@@ -454,6 +463,15 @@ class TransformerLM(nn.Module):
         return x[:, -1] @ self._head(), k_pages, v_pages
 
     # ------------------------------------------------- paged-KV engine hooks
+    def paged_kernel(self, page_size: int) -> dict:
+        """The paged kernel's ``{"variant", "pages_per_block"}`` for this
+        model's pools at ``page_size``: the per-shape table's entry at
+        its KV heads, Dh and head grouping (``pd_ops.kernel_config``)."""
+        cfg = self.cfg
+        return pd_ops.kernel_config(page_size, cfg.num_kv_heads,
+                                    self.head_dim,
+                                    cfg.num_heads // cfg.num_kv_heads)
+
     def paged_kv_layout(self) -> Optional[Tuple[int, int, int]]:
         """(layers, kv_heads, head_dim) of the PagedKVCache backing this
         model's KV, or None for sliding-window attention: its ring wraps

@@ -20,9 +20,21 @@ than one chunk, the last block of each (row, KV head) merges the chunks,
 and the call counts in ``split_launches``.  The stage of the copy ring
 holds at most ``pages_per_block`` pages and ``STAGE_BYTES`` of K and V;
 the bits do not depend on it.
+
+Which variant a model's decode step launches, and with what
+``pages_per_block``, is read from the per-shape table ``autotune.json``
+beside this module (``kernel_config``), which the sweep in ``tune.py``
+writes from the card's timings; a key the table lacks takes its
+``"default"`` entry, and a table without one ``DEFAULT_VARIANT`` at
+``DEFAULT_PAGES_PER_BLOCK``.  The table never touches the chunk plan.
+A caller forces a variant by passing it (``paged_decode_step(variant=)``,
+``InferenceEngine(kernel_variant=)``); nothing in the environment does.
 """
 from __future__ import annotations
 
+import functools
+import json
+import os
 import threading
 from typing import Optional
 
@@ -47,6 +59,7 @@ STAGE_BYTES = 16 * 1024         # K and V bytes a stage of the ring holds
 RING_STAGES = 2
 MAX_SPLIT = 65535               # chunks a table may hold (the grid's z)
 _MAX_SMEM = 227 * 1024
+_DEFAULT_TABLE = os.path.join(os.path.dirname(__file__), "autotune.json")
 
 # kernel launches since the last reset, all variants (CPU calls are not
 # counted), those of each variant (an attend-only call with stages of
@@ -75,6 +88,55 @@ def _count(split: bool, variant: str) -> None:
         variant_launches[variant] += 1
         if split:
             split_launches += 1
+
+
+def shape_key(page_size: int, n_kv_heads: int, head_dim: int,
+              group: int) -> str:
+    """The table's key for a pool and query shape, in the JAX package's
+    format, so that one key names one shape in both tables."""
+    return f"ps{page_size}-hkv{n_kv_heads}-dh{head_dim}-g{group}"
+
+
+@functools.lru_cache(maxsize=None)
+def _load_table(path: str) -> dict:
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return {}
+
+
+def table() -> dict:
+    """The checked-in table (``autotune.json`` beside this module), the
+    one ``kernel_config`` reads; ``{}`` where it is missing or
+    unreadable."""
+    return _load_table(_DEFAULT_TABLE)
+
+
+def kernel_config(page_size: int, n_kv_heads: int, head_dim: int,
+                  group: int) -> dict:
+    """``{"variant", "pages_per_block"}`` for a shape: the table's entry
+    for its exact key, else the table's ``"default"``, else ``fused`` at
+    ``DEFAULT_PAGES_PER_BLOCK``.  An entry's other keys (a JAX table's
+    ``grid_layout``) are ignored: the grid here is always ``(B, Hkv,
+    chunks)``.  Raises ValueError on a
+    variant outside ``VARIANTS`` or pages a block outside
+    ``PAGES_PER_BLOCK``."""
+    configs = table().get("configs", {})
+    cfg = {"variant": DEFAULT_VARIANT,
+           "pages_per_block": DEFAULT_PAGES_PER_BLOCK}
+    for entry in (configs.get("default"),
+                  configs.get(shape_key(page_size, n_kv_heads, head_dim,
+                                        group))):
+        cfg.update({k: v for k, v in (entry or {}).items() if k in cfg})
+    if cfg["variant"] not in VARIANTS:
+        raise ValueError(f"paged kernel variant {cfg['variant']!r} not in "
+                         f"{VARIANTS}")
+    if cfg["pages_per_block"] not in PAGES_PER_BLOCK \
+            or isinstance(cfg["pages_per_block"], bool):
+        raise ValueError(f"pages_per_block {cfg['pages_per_block']!r} not "
+                         f"in {PAGES_PER_BLOCK}")
+    return cfg
 
 
 def plan_chunk_pages(page_size: int, head_dim: int) -> int:
@@ -111,6 +173,35 @@ def smem_bytes(G: int, head_dim: int, page_size: int, elem_bytes: int,
     slots = (chunk_pages * page_size + 1) // 2 * 2
     return RING_STAGES * 2 * sk * head_dim * elem_bytes + 8 * slots \
         + 4 * (G * head_dim + G * sk + G * stage + 2 * G) + 4 * chunk_pages
+
+
+def append_targets(page_table, lengths, page_size: int):
+    """Where a decode step that appends outside the kernel writes each
+    row's new K/V row, with no host sync (so it runs on meta tensors too):
+    ``(slots, rows, live)`` over the pool's ``P * page`` slots.  A row
+    with ``lengths[b] >= 0`` writes its own row at ``page_table[b, len //
+    page] * page + len % page``; a padding row repeats the first live
+    row's write (its slot and its row), and where no row is live
+    ``live`` is false and every row writes that slot's own content back.
+    So the pool changes at the live rows' slots and nowhere else, as
+    ``scatter_append_ref`` writes it.  Computed once a step."""
+    valid = lengths >= 0
+    pos = lengths.clamp(min=0).long()
+    page = page_table.gather(1, (pos // page_size)[:, None])[:, 0].long()
+    slots = page * page_size + pos % page_size
+    first = valid.int().argmax()            # 0 where no row is live
+    rows = torch.where(valid, torch.arange(lengths.shape[0],
+                                           device=lengths.device), first)
+    return slots[rows], rows, valid.any()
+
+
+def append_rows_(pool, targets, new) -> None:
+    """Write ``new`` (B, Hkv, Dh), in the pool's dtype, into ``pool`` (P,
+    page, Hkv, Dh) IN PLACE at ``append_targets``' slots: one layer's
+    append of a step that attends with ``single`` or ``blocked``."""
+    slots, rows, live = targets
+    flat = pool.view(-1, *pool.shape[2:])
+    flat.index_put_((slots,), torch.where(live, new[rows], flat[slots]))
 
 
 def _check(q, k_pages, v_pages, page_table, lengths, k_new=None,

@@ -68,6 +68,19 @@ def test_param_counts_equal_jax(arch):
         assert get_config(arch).param_count() * 2 > 80e9
 
 
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_config_predicates_equal_jax(arch):
+    """``is_encdec``, ``is_recurrent`` and ``full_attention`` equal the
+    JAX package's, at full size and on the smoke configs."""
+    for mine, ref in ((get_config(arch), jax_config(arch)),
+                      (get_smoke(arch), jax_smoke(arch))):
+        assert (mine.is_encdec, mine.is_recurrent, mine.full_attention) == \
+            (ref.is_encdec, ref.is_recurrent, ref.full_attention)
+    assert get_config(arch).is_encdec == (arch == "whisper-tiny")
+    assert get_config(arch).is_recurrent == (
+        arch in ("xlstm-350m", "recurrentgemma-2b"))
+
+
 @pytest.fixture(scope="module", params=DENSE)
 def weights(request):
     arch = request.param

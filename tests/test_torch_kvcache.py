@@ -112,3 +112,38 @@ def test_batched_append_tokens_matches_jax():
             c.append_tokens([a, b, d], kt, vt)
     _same_state(j, t)
     assert [t.sequences[s].length for s in (0, 1, 2)] == [19, 8, 8]
+
+
+def test_page_table_and_hbm_bytes_match_jax():
+    """``page_table`` follows every add, alias, append and free as JAX's
+    does, and ``hbm_bytes`` defaults to the pool's own element width (f32
+    here, bf16 on a bf16 pool)."""
+    rng = np.random.default_rng(2)
+    j, t = _both()
+    k0, v0 = _kv(rng, 11)
+    ids = []
+    for c in (j, t):
+        a = c.add_sequence(k0, v0)
+        b = c.add_sequence(shared_from=a, shared_len=9)
+        for _ in range(6):
+            k_t, v_t = _kv(rng, 1)
+            c.append_token(b, k_t[:, 0], v_t[:, 0])
+        c.prepare_appends([a])
+        c.commit_appends([a])
+        d = c.add_sequence(*_kv(rng, 3))
+        ids.append((a, b, d))
+    assert ids[0] == ids[1]
+    for seq in ids[0]:
+        assert t.page_table(seq) == j.page_table(seq)
+        assert isinstance(t.page_table(seq), list)
+    t.page_table(ids[0][0]).append(99)          # a copy, not the entry
+    assert t.page_table(ids[0][0]) == j.page_table(ids[0][0])
+    for c in (j, t):
+        c.free_sequence(ids[0][0])
+    assert t.page_table(ids[0][1]) == j.page_table(ids[0][1])
+    with pytest.raises(KeyError):
+        t.page_table(ids[0][0])
+    assert t.hbm_bytes() == j.hbm_bytes() == 2 * L * 16 * PS * H * D * 4
+    assert t.hbm_bytes(2) == j.hbm_bytes(2)
+    bf16 = PagedKVCache(L, 16, PS, H, D, dtype=torch.bfloat16, device="cpu")
+    assert bf16.hbm_bytes() == t.hbm_bytes(2)

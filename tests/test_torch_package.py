@@ -92,7 +92,12 @@ def test_every_module_imports_without_jax():
 
 def test_no_source_imports_jax_or_the_jax_package():
     offenders = []
-    sources = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [p.stem for p in examples] == [
+        "torch_batch_analytics", "torch_mixed_batch", "torch_online_serving",
+        "torch_quickstart", "torch_train_lm"]
+    sources = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py", *examples]
+    assert PKG / "kernels" / "paged_decode_attention" / "tune.py" in sources
     assert PKG / "configs" / "recurrentgemma_2b.py" in sources
     assert PKG / "engine" / "models" / "rglru.py" in sources
     assert PKG / "engine" / "models" / "moe.py" in sources
@@ -122,7 +127,8 @@ def test_no_source_imports_jax_or_the_jax_package():
             else:
                 continue
             for n in names:
-                if n.split(".")[0] in ("jax", "jaxlib", "repro"):
+                if n.split(".")[0] in ("jax", "jaxlib", "repro",
+                                       "benchmarks"):
                     offenders.append(f"{path}:{node.lineno}: {n}")
     assert not offenders, offenders
 
