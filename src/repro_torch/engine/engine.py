@@ -68,6 +68,7 @@ from repro_torch.engine.kvcache import PagedKVCache
 from repro_torch.engine.models import build_model
 from repro_torch.engine.prefix_tree import RadixPrefixTree
 from repro_torch.engine.sampling import batched_sample, sample
+from repro_torch.engine.spans import SpanRecorder
 
 
 @dataclass
@@ -78,7 +79,6 @@ class EngineStats:
     batches: int = 0                     # generate() calls
     coalesced_requests: int = 0
     model_loads: int = 0
-    load_seconds: float = 0.0
     prefix_hits: int = 0
     admission_waves: int = 0             # scheduler passes that admitted >=1
     priority_jumps: int = 0              # admissions that bypassed FIFO order
@@ -92,9 +92,19 @@ class EngineStats:
     d2h_bytes: int = 0                   # device->host traffic (KV + sampled ids)
     view_rebuilds: int = 0               # dense decode views built
     widest_decode_table: int = 0         # most pages a paged decode table held
+    host_syncs: int = 0                  # blocking host<->device transfers
+    admit_deferrals: int = 0             # admissions deferred for pages
+    warm_evictions: int = 0              # warm sequences freed
+    tree_rebuilds: int = 0               # radix-tree prunes
+    spans: SpanRecorder = field(default_factory=SpanRecorder, repr=False)
 
     def as_dict(self) -> Dict[str, float]:
-        return dict(self.__dict__)
+        """The counters, and the engine loop's span totals flattened
+        (``SpanRecorder.as_dict``).  The key set is fixed at construction:
+        another thread may call this while the loop runs."""
+        out = {k: v for k, v in self.__dict__.items() if k != "spans"}
+        out.update(self.spans.as_dict())
+        return out
 
 
 class EngineError(RuntimeError):
@@ -230,6 +240,8 @@ class InferenceEngine:
         self.admission_window = admission_window
         self._loaded = False     # guarded-by: self._cv | engine-loop
         self.stats = EngineStats()
+        # the loop thread's spans (runs-on: engine-loop only)
+        self._span = self.stats.spans.span
         self.warm_prefixes = RadixPrefixTree()  # guarded-by: self._cv | engine-loop
         self._paged_layout = self.model.paged_kv_layout()
         # decode straight over the pages, or (dense rows, and the
@@ -279,7 +291,6 @@ class InferenceEngine:
         dt = time.perf_counter() - t0
         self._loaded = True
         self.stats.model_loads += 1
-        self.stats.load_seconds += dt
         return dt
 
     def unload(self) -> None:
@@ -463,6 +474,7 @@ class InferenceEngine:
                     None) or next(iter(self._warm))
                 self._warm.pop(victim)
                 kv.free_sequence(victim)
+                self.stats.warm_evictions += 1
                 headroom = len(kv.free_pages) - self._reserved_pages()
             if headroom < need:
                 return 0
@@ -473,6 +485,7 @@ class InferenceEngine:
             while len(self._warm) > self.max_warm_sequences:
                 victim, _ = self._warm.popitem(last=False)
                 kv.free_sequence(victim)
+                self.stats.warm_evictions += 1
             self.warm_prefixes.insert(tokens, payload=seq, stamp_path=True)
             self._maybe_prune_tree()
             pages = len(kv.sequences[seq].page_ids)
@@ -516,20 +529,26 @@ class InferenceEngine:
         with torch.no_grad(), self._device_scope():
             while True:
                 with self._cv:
-                    while not self._shutdown and not self._pending \
-                            and not self._active:
-                        self._cv.wait()
+                    if not self._work_or_shutdown():
+                        with self._span("engine.idle"):
+                            while not self._work_or_shutdown():
+                                self._cv.wait()
                     if self._shutdown:
                         return
                     self._stepping = True
                 try:
-                    self._step()
+                    with self._span("engine.step"):
+                        self._step()
                 except BaseException as e:              # engine-fatal
                     self._fail_all(e)
                 finally:
                     with self._cv:
                         self._stepping = False
                         self._cv.notify_all()
+
+    # requires: self._cv
+    def _work_or_shutdown(self) -> bool:
+        return bool(self._shutdown or self._pending or self._active)
 
     def _fail_all(self, err: BaseException) -> None:
         with self._cv:
@@ -554,9 +573,11 @@ class InferenceEngine:
     def _step(self) -> None:
         """One scheduler iteration: admit, then one decode step."""
         self._grace_window()
-        self._admit()
+        with self._span("engine.admit"):
+            self._admit()
         if self._active:
-            self._decode_once()
+            with self._span("engine.decode"):
+                self._decode_once()
 
     def _grace_window(self) -> None:
         """Hold a FRESH batch's admission until ``admission_window``
@@ -575,24 +596,30 @@ class InferenceEngine:
                 self._cv.wait(timeout=min(wait, cap - now))
 
     # ------------------------------------------------------------- admission
+    # runs-on: engine-loop
     def _admit(self) -> None:
         admitted = 0
         while len(self._active) < self.max_batch:
-            with self._cv:
-                if not self._pending:
-                    break
-                # highest priority first; max() keeps the FIRST maximum,
-                # so equal priorities are exact FIFO
-                req = max(self._pending, key=lambda r: r.priority)
-                jumped = req is not self._pending[0]
-            if self._coalesce(req):
-                self._remove_pending(req)
+            with self._span("engine.admit.pick"):
+                with self._cv:
+                    if not self._pending:
+                        break
+                    # highest priority first; max() keeps the FIRST
+                    # maximum, so equal priorities are exact FIFO
+                    req = max(self._pending, key=lambda r: r.priority)
+                    jumped = req is not self._pending[0]
+                coalesced = self._coalesce(req)
+                if coalesced:
+                    self._remove_pending(req)
+            if coalesced:
                 continue
             try:
-                slot = self._admit_one(req)
+                with self._span("engine.admit.request", req.rid):
+                    slot = self._admit_one(req)
             except _Defer:
                 # left in the queue: a deferred request blocks the pass,
                 # so lower-priority work never slips past it
+                self.stats.admit_deferrals += 1
                 break
             except BaseException as e:                  # per-request failure
                 self._remove_pending(req)
@@ -601,13 +628,15 @@ class InferenceEngine:
             # attach still-queued exact duplicates now: a leader that
             # retires within this pass would otherwise leave _active
             # before its duplicates reach _coalesce
-            slot.followers.extend(self._claim_pending_duplicates(req))
+            with self._span("engine.admit.pick"):
+                slot.followers.extend(self._claim_pending_duplicates(req))
             if slot.remaining > 0:
                 self._active.append(slot)
                 admitted += 1
             else:
                 self._retire(slot)
-            self._remove_pending(req)
+            with self._span("engine.admit.pick"):
+                self._remove_pending(req)
             if jumped:
                 self.stats.priority_jumps += 1
         if admitted:
@@ -666,7 +695,8 @@ class InferenceEngine:
         if self.kv is None:
             layers, kv_heads, head_dim = self._paged_layout
             self.kv = PagedKVCache(layers, self.num_pages, self.page_size,
-                                   kv_heads, head_dim, device=self.device)
+                                   kv_heads, head_dim, device=self.device,
+                                   on_sync=self._count_syncs)
         return self.kv
 
     def _remove_pending(self, req: _Request) -> None:
@@ -707,8 +737,17 @@ class InferenceEngine:
                     f"{len(kv.free_pages)} free, no warm sequences left)")
             self._warm.pop(victim)
             kv.free_sequence(victim)
+            self.stats.warm_evictions += 1
+
+    # ------------------------------------------------- host<->device copies
+    # Each of these copies waits for the device (a blocking copy from or
+    # to pageable host memory synchronises the stream); ``host_syncs``
+    # counts them by site, so an engine on the CPU counts the same ones.
+    def _count_syncs(self, n: int = 1) -> None:
+        self.stats.host_syncs += n
 
     def _tokens(self, rows) -> torch.Tensor:
+        self._count_syncs()
         return torch.as_tensor(rows, dtype=torch.int32).to(self.device)
 
     def _extra(self, value) -> torch.Tensor:
@@ -716,7 +755,19 @@ class InferenceEngine:
         dtype, or a tensor) on the engine's device in the model dtype."""
         if not isinstance(value, torch.Tensor):
             value = torch.from_numpy(np.asarray(value, np.float32))
+        if value.device.type == "cpu":
+            self._count_syncs()
         return value.to(self.device, self.model.dtype)
+
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        """A device result read on the host: sampled token ids."""
+        self._count_syncs()
+        return t.cpu().numpy()
+
+    def _cache_view(self, k_rows, v_rows, lengths):
+        """``model.paged_cache_view``, which uploads ``lengths``."""
+        self._count_syncs()
+        return self.model.paged_cache_view(k_rows, v_rows, lengths)
 
     def _prefill(self, req: _Request):
         """The full prefill of one prompt with its request's extras: an
@@ -733,16 +784,20 @@ class InferenceEngine:
                 tokens, prefix_embeds=self._extra(req.extra["patch_embeds"]))
         return self.model.prefill(tokens)
 
+    # runs-on: engine-loop
     def _admit_one(self, req: _Request) -> _Slot:
         if not self._loaded:
             self.load()
         S = len(req.prompt)
-        slot = _Slot(req=req, remaining=req.max_new,
-                     gen=self._request_gen(req))
+        with self._span("engine.admit.seed"):
+            gen = self._request_gen(req)
+        slot = _Slot(req=req, remaining=req.max_new, gen=gen)
         if not self._paged_layout:
             # dense row: the prefill state, grown to the engine's horizon
-            logits, cache = self._prefill(req)
-            slot.row = self.model.extend_cache(cache, self.max_seq_len - S)
+            with self._span("engine.admit.model"):
+                logits, cache = self._prefill(req)
+                slot.row = self.model.extend_cache(cache,
+                                                   self.max_seq_len - S)
             slot.length = S
             self.stats.prefill_tokens += S
             if req.max_new > 0:
@@ -753,11 +808,13 @@ class InferenceEngine:
         donor, shared = None, 0
         if shareable:
             # deepest-first; cap at S-1 so one fresh token remains
-            donor, shared = self._find_warm_donor(req.prompt, cap=S - 1)
+            with self._span("engine.admit.match"):
+                donor, shared = self._find_warm_donor(req.prompt, cap=S - 1)
         patches = req.extra.get("patch_embeds")
         n_patch = 0 if patches is None else patches.shape[-2]
-        self._ensure_pages(-(-(S - shared + n_patch + req.max_new)
-                             // self.page_size) + 1, protect=donor)
+        with self._span("engine.admit.pages"):
+            self._ensure_pages(-(-(S - shared + n_patch + req.max_new)
+                                 // self.page_size) + 1, protect=donor)
         if donor is not None:
             logits = self._prefill_shared(slot, donor, shared)
             self.stats.prefix_hits += 1
@@ -770,15 +827,18 @@ class InferenceEngine:
             self.stats.prefill_tokens += S
         else:
             # one full prefill; the patches' rows lead the sequence's pages
-            logits, cache = self._prefill(req)
+            with self._span("engine.admit.model"):
+                logits, cache = self._prefill(req)
             s_kv = S + n_patch
-            slot.seq_id = kv.add_sequence(
-                *self.model.cache_kv_rows_dev(cache, 0, s_kv))
+            with self._span("engine.admit.pool"):
+                slot.seq_id = kv.add_sequence(
+                    *self.model.cache_kv_rows_dev(cache, 0, s_kv))
             self.stats.prefill_tokens += s_kv
         slot.length = kv.sequences[slot.seq_id].length
         if shareable:
-            self.warm_prefixes.insert(req.prompt, payload=slot.seq_id,
-                                      stamp_path=True)
+            with self._span("engine.admit.tree"):
+                self.warm_prefixes.insert(req.prompt, payload=slot.seq_id,
+                                          stamp_path=True)
         self.stats.pages_shared = kv.pages_shared
         self.stats.tokens_reused = kv.tokens_reused
         if req.max_new > 0:
@@ -798,42 +858,54 @@ class InferenceEngine:
             n = kp.shape[1]
             k_rows[0, :, :n] = kp
             v_rows[0, :, :n] = vp
-        return self.model.paged_cache_view(k_rows, v_rows, [n])
+        return self._cache_view(k_rows, v_rows, [n])
 
+    # runs-on: engine-loop
     def _prefill_cold(self, slot: _Slot):
         """Prefill a donor-less prompt via the bucketed chunk step over an
         empty cache view (one shape per (suffix bucket, time bucket))."""
         req = slot.req
         S = len(req.prompt)
         pad = -(-S // self._PF_QUANTUM) * self._PF_QUANTUM
-        cache = self._chunk_view(self._round_t(pad + req.max_new))
-        toks = self._tokens([list(req.prompt) + [0] * (pad - S)])
-        logits, cache = self.model.prefill_with_cache(
-            toks, cache, valid_len=self._tokens([S]))
-        slot.seq_id = self.kv.add_sequence(
-            *self.model.cache_kv_rows_dev(cache, 0, S))
+        with self._span("engine.admit.view"):
+            cache = self._chunk_view(self._round_t(pad + req.max_new))
+            toks = self._tokens([list(req.prompt) + [0] * (pad - S)])
+            valid = self._tokens([S])
+        with self._span("engine.admit.model"):
+            logits, cache = self.model.prefill_with_cache(
+                toks, cache, valid_len=valid)
+        with self._span("engine.admit.pool"):
+            slot.seq_id = self.kv.add_sequence(
+                *self.model.cache_kv_rows_dev(cache, 0, S))
         return logits
 
+    # runs-on: engine-loop
     def _prefill_shared(self, slot: _Slot, donor: int, shared: int):
         """Admit via page aliasing: reuse the donor's first ``shared``
         tokens, chunk-prefill only the unseen suffix, append its KV."""
         kv = self.kv
         req = slot.req
-        seq = kv.add_sequence(shared_from=donor, shared_len=shared)
+        with self._span("engine.admit.pool"):
+            seq = kv.add_sequence(shared_from=donor, shared_len=shared)
         slot.seq_id = seq
         S = len(req.prompt)
         # pad the suffix to a quantum: the share point depends on which
         # prefixes happen to be warm at admission time
         n_suf = S - shared
         pad = -(-n_suf // self._PF_QUANTUM) * self._PF_QUANTUM
-        cache = self._chunk_view(self._round_t(shared + pad + req.max_new),
-                                 prefix=kv.gather(seq))
-        suffix = self._tokens(
-            [list(req.prompt[shared:]) + [0] * (pad - n_suf)])
-        logits, cache = self.model.prefill_with_cache(
-            suffix, cache, valid_len=self._tokens([n_suf]))
-        k_row, v_row = self.model.cache_kv_rows_dev(cache, 0, S)
-        kv.extend_sequence(seq, k_row[:, shared:], v_row[:, shared:])
+        with self._span("engine.admit.view"):
+            cache = self._chunk_view(
+                self._round_t(shared + pad + req.max_new),
+                prefix=kv.gather(seq))
+            suffix = self._tokens(
+                [list(req.prompt[shared:]) + [0] * (pad - n_suf)])
+            valid = self._tokens([n_suf])
+        with self._span("engine.admit.model"):
+            logits, cache = self.model.prefill_with_cache(
+                suffix, cache, valid_len=valid)
+        with self._span("engine.admit.pool"):
+            k_row, v_row = self.model.cache_kv_rows_dev(cache, 0, S)
+            kv.extend_sequence(seq, k_row[:, shared:], v_row[:, shared:])
         return logits
 
     # ---------------------------------------------------------------- decode
@@ -872,7 +944,7 @@ class InferenceEngine:
                 k_rows[i, :, :s.length] = kr
                 v_rows[i, :, :s.length] = vr
                 lengths[i] = s.length
-            self._view = self.model.paged_cache_view(k_rows, v_rows, lengths)
+            self._view = self._cache_view(k_rows, v_rows, lengths)
         else:
             rows = self._dense_rows() + [None] * (b_pad - len(slots))
             axes = self.model.cache_batch_axes(rows[0])
@@ -898,28 +970,34 @@ class InferenceEngine:
         axes = self.model.cache_batch_axes(view)
         return {k: v.narrow(axes[k], ix, 1) for k, v in view.items()}
 
+    # runs-on: engine-loop
     def _decode_once(self) -> None:
         if self._use_paged:
             self._decode_paged()
             return
-        if self._dirty:
-            self._rebuild_view()
-            for i, s in enumerate(self._active):
-                s.view_ix = i
-        slots = self._active
-        b_real = len(slots)
-        tokens = np.zeros((self._view_pad,), np.int32)
-        tokens[:b_real] = [s.last_token for s in slots]
-        prev_lengths = [s.length for s in slots]
-        self.stats.h2d_bytes += tokens.nbytes
-        logits, self._view = self.model.decode_step(self._tokens(tokens),
-                                                    self._view)
-        if self._paged_layout:
-            # the step's new K/V back into the pages (identity slots: a
-            # full-attention view does not wrap)
-            k_taps, v_taps = self.model.decode_kv_taps(self._view,
-                                                       prev_lengths)
-            self.kv.append_tokens([s.seq_id for s in slots], k_taps, v_taps)
+        with self._span("engine.decode.tables"):
+            if self._dirty:
+                self._rebuild_view()
+                for i, s in enumerate(self._active):
+                    s.view_ix = i
+            slots = self._active
+            b_real = len(slots)
+            tokens = np.zeros((self._view_pad,), np.int32)
+            tokens[:b_real] = [s.last_token for s in slots]
+            prev_lengths = [s.length for s in slots]
+            self.stats.h2d_bytes += tokens.nbytes
+            t_tokens = self._tokens(tokens)
+        with self._span("engine.decode.model"):
+            logits, self._view = self.model.decode_step(t_tokens, self._view)
+            if self._paged_layout:
+                # the step's new K/V back into the pages (identity slots:
+                # a full-attention view does not wrap); the taps upload
+                # their slots
+                self._count_syncs()
+                k_taps, v_taps = self.model.decode_kv_taps(self._view,
+                                                           prev_lengths)
+                self.kv.append_tokens([s.seq_id for s in slots],
+                                      k_taps, v_taps)
         for s in slots:
             s.length += 1
         self.stats.decode_tokens += b_real
@@ -933,38 +1011,46 @@ class InferenceEngine:
         kv = self.kv
         slots = self._active
         b_real = len(slots)
-        # page alloc + COW (host metadata): after this every write-target
-        # page is private to its row, the fused kernel's safety contract
-        kv.prepare_appends([s.seq_id for s in slots])
-        b_pad = self._round_b(b_real)
-        t_cap = self._round_t(max(s.length + s.remaining for s in slots))
-        n_pages = -(-t_cap // self.page_size)
-        self.stats.widest_decode_table = max(
-            self.stats.widest_decode_table, n_pages)
-        pt = np.zeros((b_pad, n_pages), np.int32)
-        lens = np.full((b_pad,), -1, np.int32)
-        tokens = np.zeros((b_pad,), np.int32)
-        for i, s in enumerate(slots):
-            ids = kv.sequences[s.seq_id].page_ids
-            pt[i, :len(ids)] = ids
-            lens[i] = s.length
-            tokens[i] = s.last_token
-        self.stats.h2d_bytes += pt.nbytes + lens.nbytes + tokens.nbytes
-        logits, _, _ = self.model.paged_decode_step(
-            self._tokens(tokens), kv.k, kv.v, self._tokens(pt),
-            self._tokens(lens), variant=self._paged_kernel[0],
-            pages_per_block=self._paged_kernel[1])
+        with self._span("engine.decode.tables"):
+            # page alloc + COW (host metadata): after this every
+            # write-target page is private to its row, the fused kernel's
+            # safety contract
+            kv.prepare_appends([s.seq_id for s in slots])
+            b_pad = self._round_b(b_real)
+            t_cap = self._round_t(max(s.length + s.remaining for s in slots))
+            n_pages = -(-t_cap // self.page_size)
+            self.stats.widest_decode_table = max(
+                self.stats.widest_decode_table, n_pages)
+            pt = np.zeros((b_pad, n_pages), np.int32)
+            lens = np.full((b_pad,), -1, np.int32)
+            tokens = np.zeros((b_pad,), np.int32)
+            for i, s in enumerate(slots):
+                ids = kv.sequences[s.seq_id].page_ids
+                pt[i, :len(ids)] = ids
+                lens[i] = s.length
+                tokens[i] = s.last_token
+            self.stats.h2d_bytes += pt.nbytes + lens.nbytes + tokens.nbytes
+            t_tokens = self._tokens(tokens)
+            t_pt = self._tokens(pt)
+            t_lens = self._tokens(lens)
+        with self._span("engine.decode.model"):
+            logits, _, _ = self.model.paged_decode_step(
+                t_tokens, kv.k, kv.v, t_pt, t_lens,
+                variant=self._paged_kernel[0],
+                pages_per_block=self._paged_kernel[1])
         kv.commit_appends([s.seq_id for s in slots])
         for s in slots:
             s.length += 1
         self.stats.decode_tokens += b_real
         self._advance(logits)
 
+    # runs-on: engine-loop
     def _emit_token(self, slot: _Slot, logits) -> None:
         """Sample one token for ``slot`` from (1, Vpad) logits."""
         nxt = sample(logits, slot.gen, temperature=slot.req.temperature,
                      vocab_size=self.cfg.vocab_size)
-        tok = int(nxt[0])
+        with self._span("engine.admit.sync"):
+            tok = int(self._to_host(nxt)[0])
         slot.generated.append(tok)
         slot.last_token = tok
         slot.remaining -= 1
@@ -974,23 +1060,27 @@ class InferenceEngine:
         whole (B, Vpad) batch is sampled on the device and synced once."""
         slots = list(self._active)
         temps = [s.req.temperature for s in slots]
-        toks = batched_sample(logits[:len(slots)], temps,
-                              [s.gen for s in slots],
-                              vocab_size=self.cfg.vocab_size).cpu().numpy()
-        self.stats.d2h_bytes += toks.nbytes
-        finished = []
-        for i, s in enumerate(slots):
-            tok = int(toks[i])
-            s.generated.append(tok)
-            s.last_token = tok
-            s.remaining -= 1
-            if s.remaining == 0:
-                finished.append(s)
-        for s in finished:
-            self._active.remove(s)
-            self._retire(s)
-        if finished:
-            self._dirty = True
+        with self._span("engine.decode.sample"):
+            ids = batched_sample(logits[:len(slots)], temps,
+                                 [s.gen for s in slots],
+                                 vocab_size=self.cfg.vocab_size)
+        with self._span("engine.decode.sync"):
+            toks = self._to_host(ids)
+        with self._span("engine.decode.retire"):
+            self.stats.d2h_bytes += toks.nbytes
+            finished = []
+            for i, s in enumerate(slots):
+                tok = int(toks[i])
+                s.generated.append(tok)
+                s.last_token = tok
+                s.remaining -= 1
+                if s.remaining == 0:
+                    finished.append(s)
+            for s in finished:
+                self._active.remove(s)
+                self._retire(s)
+            if finished:
+                self._dirty = True
 
     def _retire(self, slot: _Slot) -> None:
         req = slot.req
@@ -1001,6 +1091,7 @@ class InferenceEngine:
                 while len(self._warm) > self.max_warm_sequences:
                     victim, _ = self._warm.popitem(last=False)
                     self.kv.free_sequence(victim)
+                    self.stats.warm_evictions += 1
                 self._maybe_prune_tree()
             else:
                 self.kv.free_sequence(slot.seq_id)
@@ -1022,3 +1113,4 @@ class InferenceEngine:
             if s.seq_id is not None and not s.req.extra:
                 tree.insert(s.req.prompt, payload=s.seq_id, stamp_path=True)
         self.warm_prefixes = tree
+        self.stats.tree_rebuilds += 1

@@ -27,7 +27,7 @@ KV can move between a JAX engine and a torch engine.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,11 +46,16 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
 
     Thread contract: the cache has no lock of its own; every method runs
     on the owning engine's loop thread or under ``InferenceEngine._cv``
-    in a step gap."""
+    in a step gap.
+
+    ``on_sync(n)``, where given, is told of each copy between host and
+    device memory that the pool makes (index uploads, host blocks in and
+    out), each of which waits for the device."""
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  kv_heads: int, head_dim: int, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda",
+                 on_sync: Optional[Callable[[int], None]] = None):
         self.num_layers = num_layers
         self.num_pages = num_pages
         self.page_size = page_size
@@ -67,6 +72,11 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         self._next_seq = 0
         self.pages_shared = 0
         self.tokens_reused = 0
+        self._on_sync = on_sync
+
+    def _synced(self, n: int = 1) -> None:
+        if self._on_sync is not None:
+            self._on_sync(n)
 
     # ------------------------------------------------------------ alloc/free
     def _alloc_page(self) -> int:
@@ -90,10 +100,13 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
 
     # ----------------------------------------------------- device plumbing
     def _on_device(self, a) -> torch.Tensor:
-        t = torch.from_numpy(np.array(a)) if isinstance(a, np.ndarray) else a
-        return t.to(self.device, self.dtype)
+        if isinstance(a, np.ndarray):
+            self._synced()
+            a = torch.from_numpy(np.array(a))
+        return a.to(self.device, self.dtype)
 
     def _index(self, ids) -> torch.Tensor:
+        self._synced()
         return torch.as_tensor(list(ids), dtype=torch.long,
                                device=self.device)
 
@@ -280,6 +293,7 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         idx = self._index(e.page_ids[:-(-n // self.page_size)])
         out_k = self.k[:, idx].reshape(L, -1, H, D)[:, :n]
         out_v = self.v[:, idx].reshape(L, -1, H, D)[:, :n]
+        self._synced(2)
         return (out_k.float().cpu().numpy(), out_v.float().cpu().numpy())
 
     def import_sequence(self, k: np.ndarray, v: np.ndarray) -> int:
