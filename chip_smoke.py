@@ -1436,11 +1436,12 @@ def processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
     # ------------------------------------------------------------ the run
     def timed_run(*args, **kw):
         """``run`` with where its time goes: every engine's decode steps
-        (wall and the loop thread's CPU seconds) and admissions (prefill),
-        timed on the engines' loop threads."""
+        (wall and the loop thread's CPU seconds) and prefill calls (an
+        admission's prefill, or a batch of cold ones), timed on the
+        engines' loop threads."""
         t = {"step": [], "step_cpu": [], "admit": []}
-        orig_decode, orig_admit = (InferenceEngine._decode_paged,
-                                   InferenceEngine._admit_one)
+        orig_decode = InferenceEngine._decode_paged
+        orig_admit = {m: getattr(InferenceEngine, m) for m in PREFILL_CALLS}
 
         def timed_decode(self):
             t0, c0 = time.perf_counter(), time.thread_time()
@@ -1448,19 +1449,22 @@ def processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
             t["step_cpu"].append(time.thread_time() - c0)
             t["step"].append(time.perf_counter() - t0)
 
-        def timed_admit(self, req):
-            t0 = time.perf_counter()
-            slot = orig_admit(self, req)
-            t["admit"].append(time.perf_counter() - t0)
-            return slot
+        def timed(orig):
+            def timed_admit(self, *a):
+                t0 = time.perf_counter()
+                orig(self, *a)
+                t["admit"].append(time.perf_counter() - t0)
+            return timed_admit
 
         InferenceEngine._decode_paged = timed_decode
-        InferenceEngine._admit_one = timed_admit
+        for m, orig in orig_admit.items():
+            setattr(InferenceEngine, m, timed(orig))
         try:
             return (*run(*args, **kw), t)
         finally:
             InferenceEngine._decode_paged = orig_decode
-            InferenceEngine._admit_one = orig_admit
+            for m, orig in orig_admit.items():
+                setattr(InferenceEngine, m, orig)
 
     def mean_ms(xs):
         return f"{1e3 * sum(xs) / max(len(xs), 1):.3f}"
@@ -1545,9 +1549,9 @@ def processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
             mean_step_ms=mean_ms(times["step"]),
             mean_step_thread_cpu_ms=mean_ms(times["step_cpu"]),
             decode_tok_per_s=f"{x['decode_tokens'] / wall_s:.2f}",
-            admissions=len(times["admit"]),
-            admission_s=f"{sum(times['admit']):.3f}",
-            prefill_ms_per_admission=mean_ms(times["admit"]),
+            prefill_calls=len(times["admit"]),
+            prefill_s=f"{sum(times['admit']):.3f}",
+            prefill_ms_per_call=mean_ms(times["admit"]),
             llm_record_s=summary["gpu_seconds"],
             tool_record_s=summary["cpu_seconds"],
             cpu_gpu_overlap_s=x["cpu_gpu_overlap_s"],
@@ -1600,7 +1604,7 @@ def processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
         wall_s=f"{one_s:.3f}", decode_steps=len(t1["step"]),
         mean_step_ms=mean_ms(t1["step"]),
         mean_step_thread_cpu_ms=mean_ms(t1["step_cpu"]),
-        prefill_ms_per_admission=mean_ms(t1["admit"]),
+        prefill_ms_per_call=mean_ms(t1["admit"]),
         two_workers_mean_step_ms=mean_ms(times["step"]),
         two_workers_mean_step_thread_cpu_ms=mean_ms(times["step_cpu"]),
         equal_results=results_compare(res, one.results())[0])
@@ -1989,32 +1993,45 @@ def family_prompts(np, tokenizer, vocab, seed, spec):
     return out, len(shared)
 
 
+# the engine's prefill calls: a request prefilled alone (a dense row, a
+# donor's suffix, a request with extras: ``_admit_one(slot, donor,
+# shared)``) and the cold prompts of one admission pass, batched
+# (``_prefill_cold(slots)``)
+PREFILL_CALLS = ("_admit_one", "_prefill_cold")
+
+
 def time_engine(eng, attr="_decode_paged", kinds=None):
-    """Wrap an engine's decode step (``attr``) and its admissions with
-    host clocks.  Returns (step seconds, admission seconds, undo); a list
-    ``kinds`` gets, for each admission, whether its request had extras."""
+    """Wrap an engine's decode step (``attr``) and its prefill calls
+    (``PREFILL_CALLS``) with host clocks.  Returns (step seconds, prefill
+    call seconds, undo); a list ``kinds`` gets, for each prefill call,
+    whether it prefilled a request with extras."""
     step_s, admit_s = [], []
-    orig_decode, orig_admit = getattr(eng, attr), eng._admit_one
+    orig_decode = getattr(eng, attr)
+    orig_admit = {m: getattr(eng, m) for m in PREFILL_CALLS}
 
     def timed_decode():
         t0 = time.perf_counter()
         orig_decode()
         step_s.append(time.perf_counter() - t0)
 
-    def timed_admit(req):
-        t0 = time.perf_counter()
-        slot = orig_admit(req)
-        admit_s.append(time.perf_counter() - t0)
-        if kinds is not None:
-            kinds.append(bool(req.extra))
-        return slot
+    def timed(orig):
+        def timed_admit(first, *a):
+            t0 = time.perf_counter()
+            orig(first, *a)
+            admit_s.append(time.perf_counter() - t0)
+            if kinds is not None:
+                slots = first if isinstance(first, list) else [first]
+                kinds.append(any(s.req.extra for s in slots))
+        return timed_admit
 
     setattr(eng, attr, timed_decode)
-    eng._admit_one = timed_admit
+    for m, orig in orig_admit.items():
+        setattr(eng, m, timed(orig))
 
     def undo():
         setattr(eng, attr, orig_decode)
-        eng._admit_one = orig_admit
+        for m, orig in orig_admit.items():
+            setattr(eng, m, orig)
 
     return step_s, admit_s, undo
 
@@ -2401,13 +2418,14 @@ def moe_phases(torch, np, get_config, tokenizer, InferenceEngine, moe,
         f"shared, {cfg.num_heads}/{cfg.num_kv_heads} heads, Dh "
         f"{cfg.resolved_head_dim})", dtype="bf16",
         params_gb=f"{eng.param_bytes() / 1e9:.3f}", requests=len(outs),
-        admitted=len(admit_s), tokens_each=max_new, shared_prefix=n_shared,
+        prefill_calls=len(admit_s), tokens_each=max_new,
+        shared_prefix=n_shared,
         prefix_hits=st.prefix_hits, coalesced=st.coalesced_requests,
         peak_batch=st.peak_batch, decode_steps=len(step_s),
         decode_tokens=st.decode_tokens, load_s=f"{load_s:.3f}",
         run_s=f"{run_s:.3f}",
         mean_step_ms=f"{1e3 * decode_s / len(step_s):.3f}",
-        prefill_ms_per_request=f"{1e3 * sum(admit_s) / len(admit_s):.3f}",
+        prefill_ms_per_call=f"{1e3 * sum(admit_s) / len(admit_s):.3f}",
         decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
         max_memory_allocated_gib=
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
@@ -2546,7 +2564,7 @@ def dense_family_phase(torch, np, arch, get_config, tokenizer,
         prefix_hits=st.prefix_hits, peak_batch=st.peak_batch,
         decode_steps=len(step_s), load_s=f"{load_s:.3f}",
         mean_step_ms=f"{1e3 * decode_s / len(step_s):.3f}",
-        prefill_ms_per_request=f"{1e3 * sum(admit_s) / len(admit_s):.3f}",
+        prefill_ms_per_call=f"{1e3 * sum(admit_s) / len(admit_s):.3f}",
         decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
         max_memory_allocated_gib=f"{peak:.3f}",
         allocated_before_load_gib=f"{before_gib:.3f}",
@@ -5058,9 +5076,10 @@ def main() -> int:
     assert st.prefix_hits >= 1 and st.coalesced_requests >= 1 \
         and st.peak_batch >= 2, st.as_dict()
     n_steps = len(step_s)
-    admitted = len(admit_s)
+    calls = len(admit_s)
     log("engine.run", model="qwen3-1.7b(full width, 28 layers)",
-        requests=len(outs), admitted=admitted, tokens_each=max_new,
+        requests=len(outs), prefill_calls=calls,
+        prefill_rows=st.prefill_rows, tokens_each=max_new,
         prefix_hits=st.prefix_hits, tokens_reused=st.tokens_reused,
         coalesced=st.coalesced_requests, peak_batch=st.peak_batch,
         admission_waves=st.admission_waves, decode_steps=n_steps,
@@ -5069,10 +5088,10 @@ def main() -> int:
     decode_s = sum(step_s)
     log("engine.perf", decode_tok_per_s=f"{st.decode_tokens / decode_s:.2f}",
         mean_step_ms=f"{1e3 * decode_s / n_steps:.3f}",
-        prefill_ms_per_request=f"{1e3 * sum(admit_s) / admitted:.3f}",
+        prefill_ms_per_call=f"{1e3 * sum(admit_s) / calls:.3f}",
         flash_launches=fa_launches,
         flash_tensor_core_launches=launches["flash_tensor_core"],
-        flash_launches_per_request=f"{fa_launches / admitted:.1f}",
+        flash_launches_per_call=f"{fa_launches / calls:.1f}",
         paged_launches=pd_launches, paged_split_launches=pd_split,
         paged_launches_per_step=f"{pd_launches / n_steps:.1f}",
         max_memory_allocated_gib=

@@ -17,10 +17,19 @@ transformers (the paged path):
 * prompt prefixes found in the ``RadixPrefixTree`` are served by
   aliasing the donor's pages (copy-on-write guards partial pages) and
   chunk-prefilling only the unseen suffix;
+* the cold prompts one admission pass takes (no warm donor, no extras)
+  are chunk-prefilled together, as the rows of as few calls as fit
+  ``_PF_BUDGET`` padded tokens, where the model states that a row's
+  result does not depend on the rows beside it
+  (``prefill_rows_independent``); otherwise one row a call;
 * exact-duplicate (prompt, decode-params) requests are coalesced against
   the in-flight batch (per-request sampling streams are deterministic);
-* greedy outputs do not depend on admission timing: rows are computed
-  independently and padding is masked.
+* in exact arithmetic (float32, as the tests run) greedy outputs do not
+  depend on admission timing: rows are computed independently and
+  padding is masked.  In bf16 a GEMM's rounding follows its row count
+  and padded width, so a cold request's first token can depend on the
+  prompts prefilled in the same call, as its later tokens depend on the
+  rows decoded beside it.
 
 Multimodal requests carry their stub frontend's output in ``extra``, as
 in the JAX engine: a VLM request ``patch_embeds`` (1, P, d_model),
@@ -67,7 +76,7 @@ from repro_torch.debugsync import named_condition, named_lock
 from repro_torch.engine.kvcache import PagedKVCache
 from repro_torch.engine.models import build_model
 from repro_torch.engine.prefix_tree import RadixPrefixTree
-from repro_torch.engine.sampling import batched_sample, sample
+from repro_torch.engine.sampling import batched_sample
 from repro_torch.engine.spans import SpanRecorder
 
 
@@ -75,6 +84,7 @@ from repro_torch.engine.spans import SpanRecorder
 class EngineStats:
     prefill_tokens: int = 0
     prefill_tokens_saved: int = 0        # tokens served from shared pages
+    prefill_rows: int = 0                # rows of chunk-prefill calls
     decode_tokens: int = 0
     batches: int = 0                     # generate() calls
     coalesced_requests: int = 0
@@ -209,6 +219,10 @@ class InferenceEngine:
     _T_QUANTUM = 32              # decode time bucket (page-table width)
     _PF_QUANTUM = 16             # chunk-prefill suffix bucket (share points
                                  # are timing-dependent under streaming)
+    _PF_BUDGET = 4096            # padded tokens (rows x widest bucket) of a
+                                 # batched cold prefill call: its chunk view
+                                 # and activations stay within a few GB at
+                                 # deepseek-67b's widths
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, max_batch: int = 8,
                  enable_prefix_sharing: bool = True, page_size: int = 8,
@@ -253,6 +267,10 @@ class InferenceEngine:
             kc = self.model.paged_kernel(page_size)
             self._paged_kernel = (kernel_variant or kc["variant"],
                                   kc["pages_per_block"])
+        # cold prompts of one pass share a chunk-prefill call only where a
+        # row's result does not depend on the rows beside it
+        self._batch_prefill = bool(self._paged_layout) \
+            and self.model.prefill_rows_independent
         self.num_pages = num_pages or max(
             64, 2 * max_batch * -(-max_seq_len // page_size))
         self.kv: Optional[PagedKVCache] = None   # guarded-by: self._cv | engine-loop
@@ -598,8 +616,20 @@ class InferenceEngine:
     # ------------------------------------------------------------- admission
     # runs-on: engine-loop
     def _admit(self) -> None:
+        """One admission pass.  Requests are taken in priority order,
+        duplicates coalesced and pages reserved one request at a time
+        (``_claim``).  A cold prompt is collected, and the collected
+        prompts are prefilled together (``_prefill_collected``) at the
+        pass's end, or before a request that is prefilled alone or that
+        may share a collected prompt's prefix: slots join the batch in
+        the order they were taken, and a prompt finds the donors it would
+        find admitted one at a time.  A request prefilled alone uses its
+        donor before the rows prefilled ahead of it join, since a row
+        that retires on its first token may evict that donor."""
         admitted = 0
-        while len(self._active) < self.max_batch:
+        cold: List[_Slot] = []
+        heads: set = set()              # the collected prompts' _head()s
+        while len(self._active) + len(cold) < self.max_batch:
             with self._span("engine.admit.pick"):
                 with self._cv:
                     if not self._pending:
@@ -608,14 +638,18 @@ class InferenceEngine:
                     # maximum, so equal priorities are exact FIFO
                     req = max(self._pending, key=lambda r: r.priority)
                     jumped = req is not self._pending[0]
-                coalesced = self._coalesce(req)
+                coalesced = self._coalesce(req, cold)
                 if coalesced:
                     self._remove_pending(req)
             if coalesced:
                 continue
+            head = self._head(req)
+            if head is not None and head in heads:
+                admitted += self._join(self._prefill_collected(cold, heads))
+            held = sum(self._pages_for(s.req) for s in cold)
             try:
                 with self._span("engine.admit.request", req.rid):
-                    slot = self._admit_one(req)
+                    slot, donor, shared = self._claim(req, held)
             except _Defer:
                 # left in the queue: a deferred request blocks the pass,
                 # so lower-priority work never slips past it
@@ -630,20 +664,58 @@ class InferenceEngine:
             # before its duplicates reach _coalesce
             with self._span("engine.admit.pick"):
                 slot.followers.extend(self._claim_pending_duplicates(req))
-            if slot.remaining > 0:
-                self._active.append(slot)
-                admitted += 1
-            else:
-                self._retire(slot)
-            with self._span("engine.admit.pick"):
                 self._remove_pending(req)
             if jumped:
                 self.stats.priority_jumps += 1
+            if self._paged_layout and donor is None and not req.extra:
+                cold.append(slot)
+                if head is not None:
+                    heads.add(head)
+                if not self._batch_prefill:             # one row a call
+                    admitted += self._join(
+                        self._prefill_collected(cold, heads))
+                continue
+            ready = self._prefill_collected(cold, heads)
+            try:
+                self._admit_one(slot, donor, shared)
+                ready.append(slot)
+            except BaseException as e:                  # per-request failure
+                self._fail_admission(slot, e)
+            admitted += self._join(ready)
+        admitted += self._join(self._prefill_collected(cold, heads))
         if admitted:
             self.stats.admission_waves += 1
             self.stats.peak_batch = max(self.stats.peak_batch,
                                         len(self._active))
             self._dirty = True
+
+    def _join(self, slots: Sequence[_Slot]) -> int:
+        """Put prefilled slots into the decode batch in order, then retire
+        those whose first token was their last (a retirement may rebuild
+        the radix tree from the batch); returns the slots that joined."""
+        done = []
+        for s in slots:
+            (self._active if s.remaining > 0 else done).append(s)
+        for s in done:
+            self._retire(s)
+        return len(slots) - len(done)
+
+    def _unwind(self, slot: _Slot) -> None:
+        """Return the pages a failed prefill wrote for ``slot`` and give it
+        a fresh sampling stream, as before its prefill."""
+        if self.kv is not None and slot.seq_id in self.kv.sequences:
+            self.kv.free_sequence(slot.seq_id)
+        slot.seq_id = None
+        slot.gen = self._request_gen(slot.req)
+
+    def _fail_admission(self, slot: _Slot, err: BaseException) -> None:
+        """Fail a request whose prefill raised, with its followers, and
+        return whatever pages it had taken."""
+        if self.kv is not None and slot.seq_id in self.kv.sequences:
+            self.kv.free_sequence(slot.seq_id)
+        slot.req.handle._fail(err)
+        for f in slot.followers:
+            f._fail(err)
 
     @staticmethod
     def _duplicates(a: _Request, b: _Request) -> bool:
@@ -651,14 +723,14 @@ class InferenceEngine:
                 and a.max_new == b.max_new
                 and a.temperature == b.temperature)
 
-    def _coalesce(self, req: _Request) -> bool:
-        """Attach an exact duplicate of an in-flight request as follower.
-        Per-request sampling streams are a pure function of (engine seed,
-        prompt, max_new), so duplicates decode the same tokens at any
-        temperature."""
+    def _coalesce(self, req: _Request, collected: Sequence[_Slot]) -> bool:
+        """Attach an exact duplicate of an in-flight request, or of one
+        this pass has ``collected``, as follower.  Per-request sampling
+        streams are a pure function of (engine seed, prompt, max_new), so
+        duplicates decode the same tokens at any temperature."""
         if req.extra:
             return False
-        for s in self._active:
+        for s in (*self._active, *collected):
             if self._duplicates(s.req, req):
                 s.followers.append(req.handle)
                 self.stats.coalesced_requests += 1
@@ -713,11 +785,25 @@ class InferenceEngine:
         ps = self.page_size
         return sum(-(-s.remaining // ps) + 1 for s in self._active)
 
+    def _pages_for(self, req: _Request, shared: int = 0) -> int:
+        """Pages an admission of ``req`` reserves: its prompt past the
+        ``shared`` tokens a donor holds, its patches' rows, its decode
+        budget, and one page of boundary slack."""
+        n = len(req.prompt) - shared + self._n_patch(req) + req.max_new
+        return -(-n // self.page_size) + 1
+
+    @staticmethod
+    def _n_patch(req: _Request) -> int:
+        patches = req.extra.get("patch_embeds")
+        return 0 if patches is None else patches.shape[-2]
+
     # requires: self._cv | engine-loop
-    def _ensure_pages(self, needed: int, protect: Optional[int] = None) -> None:
+    def _ensure_pages(self, needed: int, protect: Optional[int] = None,
+                      held: int = 0) -> None:
         """Evict warm sequences (LRU, never ``protect``) until ``needed``
-        pages are free beyond the active batch's decode reservation;
-        defer admission if in-flight work will free more."""
+        pages are free beyond the active batch's decode reservation and
+        the ``held`` pages of the rows this pass has collected and not yet
+        written; defer admission if in-flight work will free more."""
         kv = self.kv
         if needed > kv.num_pages:
             raise MemoryError(
@@ -726,11 +812,11 @@ class InferenceEngine:
                 f"be admitted even after evicting all warm sequences; "
                 f"raise num_pages/max_seq_len or shrink the prompt / "
                 f"max_new_tokens")
-        needed += self._reserved_pages()
+        needed += self._reserved_pages() + held
         while len(kv.free_pages) < needed:
             victim = next((s for s in self._warm if s != protect), None)
             if victim is None:
-                if self._active:
+                if self._active or held:
                     raise _Defer()
                 raise MemoryError(
                     f"KV cache out of pages ({needed} needed, "
@@ -784,14 +870,50 @@ class InferenceEngine:
                 tokens, prefix_embeds=self._extra(req.extra["patch_embeds"]))
         return self.model.prefill(tokens)
 
+    def _shareable(self, req: _Request) -> bool:
+        """Whether ``req``'s prompt may take a donor's pages or be one."""
+        return self.enable_prefix_sharing and not req.extra \
+            and len(req.prompt) > 1
+
+    def _head(self, req: _Request) -> Optional[tuple]:
+        """The first MIN_SHARED_PREFIX tokens of a prompt that could share
+        them: two prompts share a usable prefix only if these are equal."""
+        if self._shareable(req) and len(req.prompt) >= self.MIN_SHARED_PREFIX:
+            return req.prompt[:self.MIN_SHARED_PREFIX]
+        return None
+
     # runs-on: engine-loop
-    def _admit_one(self, req: _Request) -> _Slot:
+    def _claim(self, req: _Request, held: int):
+        """The part of an admission that is the request's own: its
+        sampling stream, its warm donor and its pages (``held``: see
+        ``_ensure_pages``).  Returns (slot, donor, shared tokens)."""
         if not self._loaded:
             self.load()
-        S = len(req.prompt)
         with self._span("engine.admit.seed"):
             gen = self._request_gen(req)
         slot = _Slot(req=req, remaining=req.max_new, gen=gen)
+        if not self._paged_layout:
+            return slot, None, 0
+        self._ensure_kv()
+        donor, shared = None, 0
+        if self._shareable(req):
+            # deepest-first; cap at S-1 so one fresh token remains
+            with self._span("engine.admit.match"):
+                donor, shared = self._find_warm_donor(
+                    req.prompt, cap=len(req.prompt) - 1)
+        with self._span("engine.admit.pages"):
+            self._ensure_pages(self._pages_for(req, shared), protect=donor,
+                               held=held)
+        return slot, donor, shared
+
+    # runs-on: engine-loop
+    def _admit_one(self, slot: _Slot, donor: Optional[int],
+                   shared: int) -> None:
+        """Prefill one claimed request on its own: a dense row, a prompt
+        whose first ``shared`` tokens ``donor`` holds, or a request with
+        extras; then sample its first token."""
+        req = slot.req
+        S = len(req.prompt)
         if not self._paged_layout:
             # dense row: the prefill state, grown to the engine's horizon
             with self._span("engine.admit.model"):
@@ -800,57 +922,41 @@ class InferenceEngine:
                                                    self.max_seq_len - S)
             slot.length = S
             self.stats.prefill_tokens += S
-            if req.max_new > 0:
-                self._emit_token(slot, logits[0:1])
-            return slot
-        shareable = self.enable_prefix_sharing and not req.extra and S > 1
-        kv = self._ensure_kv()
-        donor, shared = None, 0
-        if shareable:
-            # deepest-first; cap at S-1 so one fresh token remains
-            with self._span("engine.admit.match"):
-                donor, shared = self._find_warm_donor(req.prompt, cap=S - 1)
-        patches = req.extra.get("patch_embeds")
-        n_patch = 0 if patches is None else patches.shape[-2]
-        with self._span("engine.admit.pages"):
-            self._ensure_pages(-(-(S - shared + n_patch + req.max_new)
-                                 // self.page_size) + 1, protect=donor)
+            self._first_tokens([slot], logits)
+            return
+        kv = self.kv
         if donor is not None:
             logits = self._prefill_shared(slot, donor, shared)
             self.stats.prefix_hits += 1
             self.stats.prefill_tokens += S - shared
             self.stats.prefill_tokens_saved += shared
-        elif not req.extra:
-            # cold prompts run the SAME bucketed chunk-prefill step as
-            # shared ones, so padding shapes do not depend on timing
-            logits = self._prefill_cold(slot)
-            self.stats.prefill_tokens += S
         else:
             # one full prefill; the patches' rows lead the sequence's pages
             with self._span("engine.admit.model"):
                 logits, cache = self._prefill(req)
-            s_kv = S + n_patch
+            s_kv = S + self._n_patch(req)
             with self._span("engine.admit.pool"):
                 slot.seq_id = kv.add_sequence(
                     *self.model.cache_kv_rows_dev(cache, 0, s_kv))
             self.stats.prefill_tokens += s_kv
         slot.length = kv.sequences[slot.seq_id].length
-        if shareable:
+        if self._shareable(req):
             with self._span("engine.admit.tree"):
                 self.warm_prefixes.insert(req.prompt, payload=slot.seq_id,
                                           stamp_path=True)
         self.stats.pages_shared = kv.pages_shared
         self.stats.tokens_reused = kv.tokens_reused
-        if req.max_new > 0:
-            self._emit_token(slot, logits[0:1])
-        return slot
+        self._first_tokens([slot], logits)
 
-    def _chunk_view(self, T1: int, prefix=None):
-        """An empty (or prefix-filled) dense (1, L, T1, Hkv, Dh) view for
-        the chunk prefill, in the model dtype, on the device."""
+    def _chunk_view(self, T1: int, prefix=None, rows: int = 1):
+        """An empty (or, for one row, prefix-filled) dense (rows, L, T1,
+        Hkv, Dh) view for the chunk prefill, in the model dtype, on the
+        device.  Made in the cache's (L, rows, ...) layout, so that
+        ``paged_cache_view``'s transpose copies nothing."""
         layers, heads, dh = self._paged_layout
-        k_rows = torch.zeros((1, layers, T1, heads, dh),
-                             dtype=self.model.dtype, device=self.device)
+        k_rows = torch.zeros((layers, rows, T1, heads, dh),
+                             dtype=self.model.dtype,
+                             device=self.device).transpose(0, 1)
         v_rows = torch.zeros_like(k_rows)
         n = 0
         if prefix is not None:
@@ -858,26 +964,88 @@ class InferenceEngine:
             n = kp.shape[1]
             k_rows[0, :, :n] = kp
             v_rows[0, :, :n] = vp
-        return self._cache_view(k_rows, v_rows, [n])
+        return self._cache_view(k_rows, v_rows, [n] * rows)
+
+    def _pf_pad(self, n: int) -> int:
+        q = self._PF_QUANTUM
+        return -(-n // q) * q
+
+    def _cold_groups(self, slots: Sequence[_Slot]) -> List[List[_Slot]]:
+        """``slots`` sorted by padded prompt length and cut into groups
+        whose rows times widest padded length stay within ``_PF_BUDGET``
+        (a row wider than that alone)."""
+        groups: List[List[_Slot]] = []
+        for s in sorted(slots, key=lambda s: len(s.req.prompt)):
+            width = self._pf_pad(len(s.req.prompt))
+            if groups and (len(groups[-1]) + 1) * width <= self._PF_BUDGET:
+                groups[-1].append(s)
+            else:
+                groups.append([s])
+        return groups
 
     # runs-on: engine-loop
-    def _prefill_cold(self, slot: _Slot):
-        """Prefill a donor-less prompt via the bucketed chunk step over an
-        empty cache view (one shape per (suffix bucket, time bucket))."""
-        req = slot.req
-        S = len(req.prompt)
-        pad = -(-S // self._PF_QUANTUM) * self._PF_QUANTUM
+    def _prefill_collected(self, cold: List[_Slot],
+                           heads: set) -> List[_Slot]:
+        """Prefill the cold prompts a pass has collected, one
+        ``_prefill_cold`` call a group of ``_cold_groups``.  A group whose
+        call raises is unwound and its rows prefilled one a call, so only
+        a row that raises alone fails.  Empties ``cold`` and ``heads``;
+        returns the prefilled slots in the order they were collected, for
+        ``_join``."""
+        failed = set()
+        todo = self._cold_groups(cold)
+        while todo:
+            group = todo.pop(0)
+            try:
+                self._prefill_cold(group)
+            except BaseException as e:                  # per-call failure
+                if len(group) > 1:
+                    for s in group:
+                        self._unwind(s)
+                    todo[:0] = [[s] for s in group]
+                else:
+                    self._fail_admission(group[0], e)
+                    failed.add(id(group[0]))
+        ready = [s for s in cold if id(s) not in failed]
+        cold.clear()
+        heads.clear()
+        return ready
+
+    # runs-on: engine-loop
+    def _prefill_cold(self, slots: Sequence[_Slot]) -> None:
+        """Prefill donor-less prompts as the rows of one bucketed chunk
+        step over an empty cache view, each right-padded to the widest
+        row's ``_PF_QUANTUM`` bucket (its valid length masks the rest);
+        then each row's KV into the pool and its prompt into the radix
+        tree, and every row's first token."""
+        reqs = [s.req for s in slots]
+        pad = self._pf_pad(max(len(r.prompt) for r in reqs))
         with self._span("engine.admit.view"):
-            cache = self._chunk_view(self._round_t(pad + req.max_new))
-            toks = self._tokens([list(req.prompt) + [0] * (pad - S)])
-            valid = self._tokens([S])
+            cache = self._chunk_view(
+                self._round_t(pad + max(r.max_new for r in reqs)),
+                rows=len(reqs))
+            toks = self._tokens([list(r.prompt) + [0] * (pad - len(r.prompt))
+                                 for r in reqs])
+            valid = self._tokens([len(r.prompt) for r in reqs])
         with self._span("engine.admit.model"):
             logits, cache = self.model.prefill_with_cache(
                 toks, cache, valid_len=valid)
+        kv = self.kv
         with self._span("engine.admit.pool"):
-            slot.seq_id = self.kv.add_sequence(
-                *self.model.cache_kv_rows_dev(cache, 0, S))
-        return logits
+            for i, s in enumerate(slots):
+                s.seq_id = kv.add_sequence(*self.model.cache_kv_rows_dev(
+                    cache, i, len(s.req.prompt)))
+                s.length = len(s.req.prompt)
+        with self._span("engine.admit.tree"):
+            for s in slots:
+                if self._shareable(s.req):
+                    self.warm_prefixes.insert(s.req.prompt, payload=s.seq_id,
+                                              stamp_path=True)
+        self._first_tokens(slots, logits)
+        self.stats.prefill_tokens += sum(len(r.prompt) for r in reqs)
+        self.stats.prefill_rows += len(reqs)
+        self.stats.pages_shared = kv.pages_shared
+        self.stats.tokens_reused = kv.tokens_reused
 
     # runs-on: engine-loop
     def _prefill_shared(self, slot: _Slot, donor: int, shared: int):
@@ -892,7 +1060,7 @@ class InferenceEngine:
         # pad the suffix to a quantum: the share point depends on which
         # prefixes happen to be warm at admission time
         n_suf = S - shared
-        pad = -(-n_suf // self._PF_QUANTUM) * self._PF_QUANTUM
+        pad = self._pf_pad(n_suf)
         with self._span("engine.admit.view"):
             cache = self._chunk_view(
                 self._round_t(shared + pad + req.max_new),
@@ -903,6 +1071,7 @@ class InferenceEngine:
         with self._span("engine.admit.model"):
             logits, cache = self.model.prefill_with_cache(
                 suffix, cache, valid_len=valid)
+        self.stats.prefill_rows += 1
         with self._span("engine.admit.pool"):
             k_row, v_row = self.model.cache_kv_rows_dev(cache, 0, S)
             kv.extend_sequence(seq, k_row[:, shared:], v_row[:, shared:])
@@ -1045,15 +1214,23 @@ class InferenceEngine:
         self._advance(logits)
 
     # runs-on: engine-loop
-    def _emit_token(self, slot: _Slot, logits) -> None:
-        """Sample one token for ``slot`` from (1, Vpad) logits."""
-        nxt = sample(logits, slot.gen, temperature=slot.req.temperature,
-                     vocab_size=self.cfg.vocab_size)
+    def _first_tokens(self, slots: Sequence[_Slot], logits) -> None:
+        """Sample each prefilled slot's first token from its row of the
+        (B, Vpad) logits, each from its own stream, and read them in one
+        sync; a slot with no decode budget samples none."""
+        if not any(s.req.max_new > 0 for s in slots):
+            return
+        ids = batched_sample(logits[:len(slots)],
+                             [s.req.temperature for s in slots],
+                             [s.gen for s in slots],
+                             vocab_size=self.cfg.vocab_size)
         with self._span("engine.admit.sync"):
-            tok = int(self._to_host(nxt)[0])
-        slot.generated.append(tok)
-        slot.last_token = tok
-        slot.remaining -= 1
+            toks = self._to_host(ids)
+        for s, tok in zip(slots, toks):
+            if s.req.max_new > 0:
+                s.generated.append(int(tok))
+                s.last_token = int(tok)
+                s.remaining -= 1
 
     def _advance(self, logits) -> None:
         """Advance every active slot from one decode step's logits: the

@@ -472,6 +472,17 @@ class TransformerLM(nn.Module):
                                     self.head_dim,
                                     cfg.num_heads // cfg.num_kv_heads)
 
+    @property
+    def prefill_rows_independent(self) -> bool:
+        """Whether a row's ``prefill_with_cache`` result, in exact
+        arithmetic (float32), depends on nothing but the row: not on the
+        rows beside it, nor on padding past its own bucket.  True with no
+        MoE layer.  (In bf16 the GEMMs' rounding still follows the call's
+        row count and width.)  An MoE layer's expert capacity follows the
+        chunk's padded length and its row grouping (``moe_ffn``), and so
+        does which tokens an expert drops, in any precision."""
+        return all(blk.moe is None for blk in self.blocks)
+
     def paged_kv_layout(self) -> Optional[Tuple[int, int, int]]:
         """(layers, kv_heads, head_dim) of the PagedKVCache backing this
         model's KV, or None for sliding-window attention: its ring wraps

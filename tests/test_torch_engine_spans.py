@@ -42,11 +42,12 @@ LONG, SHORT = list(range(60, 69)), [5, 6, 7, 8, 9]
 # each span's children, as the engine nests them
 CHILDREN = {
     "engine.step": ("engine.admit", "engine.decode"),
-    "engine.admit": ("engine.admit.pick", "engine.admit.request"),
+    "engine.admit": (
+        "engine.admit.pick", "engine.admit.request", "engine.admit.view",
+        "engine.admit.model", "engine.admit.pool", "engine.admit.tree",
+        "engine.admit.sync"),
     "engine.admit.request": (
-        "engine.admit.seed", "engine.admit.match", "engine.admit.pages",
-        "engine.admit.view", "engine.admit.model", "engine.admit.pool",
-        "engine.admit.tree", "engine.admit.sync"),
+        "engine.admit.seed", "engine.admit.match", "engine.admit.pages"),
     "engine.decode": (
         "engine.decode.tables", "engine.decode.model",
         "engine.decode.sample", "engine.decode.sync",
@@ -135,12 +136,11 @@ def test_counts_match_the_work(served):
     assert stats["coalesced_requests"] >= 1 and stats["prefix_hits"] >= 1
     assert stats["span_n.engine.decode"] == calls["paged_decode_step"]
     assert stats["span_n.engine.admit.model"] == calls["prefill_with_cache"]
-    assert stats["span_n.engine.admit.model"] == \
-        submitted - stats["coalesced_requests"]
+    assert stats["prefill_rows"] == submitted - stats["coalesced_requests"]
     assert stats["admit_deferrals"] == 0
-    assert stats["span_n.engine.admit.request"] == \
-        stats["span_n.engine.admit.model"]
-    # one first-token read an admission, one read of the sampled ids a step
+    assert stats["span_n.engine.admit.request"] == stats["prefill_rows"]
+    # one first-token read a prefill call, one read of the sampled ids a
+    # step
     assert calls["_to_host"] == stats["span_n.engine.admit.sync"] \
         + stats["span_n.engine.decode.sync"]
     assert stats["host_syncs"] == sum(
@@ -176,6 +176,7 @@ def test_a_small_pool_defers_evicts_and_rebuilds(monkeypatch):
 
     monkeypatch.setattr(InferenceEngine, "_maybe_prune_tree", spy_prune)
     eng = _engine(num_pages=16, max_batch=4, max_warm_sequences=1)
+    _spy(monkeypatch, eng.model, "prefill_with_cache", calls)
     try:
         prompts = [[t + 20 * i for t in range(10)] for i in range(3)]
         eng.generate(prompts, max_new_tokens=24)
@@ -187,8 +188,9 @@ def test_a_small_pool_defers_evicts_and_rebuilds(monkeypatch):
         eng.shutdown()
     assert st["admit_deferrals"] >= 1
     assert st["span_n.engine.admit.request"] == \
-        st["span_n.engine.admit.model"] + st["admit_deferrals"]
-    assert st["span_n.engine.admit.model"] == 11
+        st["prefill_rows"] + st["admit_deferrals"]
+    assert st["prefill_rows"] == 11
+    assert st["span_n.engine.admit.model"] == calls["prefill_with_cache"]
     # every retired sequence but the one left warm was evicted
     assert st["warm_evictions"] == calls["free_sequence"] == 10
     assert st["tree_rebuilds"] == sum(rebuilt) >= 1
