@@ -1,8 +1,9 @@
 """One run of one cell: set-up, the window, the check, the metrics.
 
 Set-up builds the port's engine with the cell's settings, fills its
-parameters in place with the benchmark's weights (``reference.weights``,
-so the card holds one copy) and hands them to ``load``, warms the
+parameters in place with the benchmark's weights (``reference.weights``
+in the layout of the configuration's architecture, ``archs/``, so the
+card holds one copy) and hands them to ``load``, warms the
 shapes the cell's traffic uses, and prefills the shared prompts that its
 traffic asks to have warm.  The window drives ``InferenceEngine.submit``
 through the loop the traffic names (``loops/``).  Afterwards the peak memory is
@@ -63,30 +64,33 @@ class RunData:
 
 
 def model_config(model: dict):
-    """The port's ``ModelConfig`` for a configuration file's ``model``."""
+    """The port's ``ModelConfig`` for a configuration file's ``model``:
+    the section's fields but ``arch``, passed through (where the
+    architecture gives ``port_config``, set-up takes that)."""
     from repro_torch.configs.base import ModelConfig, MoEConfig
     fields = dict(model)
+    fields.pop("arch", None)
     moe = fields.pop("moe", None)
     return ModelConfig(moe=MoEConfig(**moe) if moe else None, **fields)
 
 
-def param_bytes(model: dict) -> int:
+def param_bytes(model: dict, arch) -> int:
     return sum(int(np.prod(shape)) * torch.empty((), dtype=getattr(
-        torch, dt)).element_size() for shape, dt, _ in W.layout(model).values())
+        torch, dt)).element_size()
+        for shape, dt, _ in arch.layout(model).values())
 
 
-def pool_pages(model: dict, engine_cfg: dict, device: torch.device) -> int:
-    """Pages that fill the card's memory left after the weights and the
-    configuration's reserve for activations (f32 pool)."""
+def pool_pages(model: dict, engine_cfg: dict, free: Optional[int],
+               arch) -> int:
+    """Pages that fill ``free`` bytes of the card less the weights and the
+    configuration's reserve for activations, at the architecture's pool
+    bytes a token; ``free`` is not read where the configuration fixes
+    ``num_pages``."""
     if "num_pages" in engine_cfg:
         return int(engine_cfg["num_pages"])
-    free, _ = torch.cuda.mem_get_info(device)
-    left = free - param_bytes(model) \
+    left = free - param_bytes(model, arch) \
         - int(float(engine_cfg["activation_reserve_gb"]) * _GIB)
-    d, h = model["d_model"], model["num_heads"]
-    dh = model.get("head_dim") or d // h
-    page = 2 * model["num_layers"] * engine_cfg["page_size"] \
-        * model["num_kv_heads"] * dh * 4
+    page = engine_cfg["page_size"] * arch.kv_bytes_per_token(model)
     if left < page * 64:
         raise MemoryError(f"{left / _GIB:.1f} GiB left for the KV pool")
     return left // page
@@ -160,15 +164,18 @@ def set_up(bench: Bench, name: str, seed: int, device: str = "cuda",
     eng_cfg = dict(cell.config["engine"])
     serve = cell.serve
     traffic = Traffic(cell.traffic, seed, eng_cfg["token_ids"])
-    cfg = model_config(m)
-    num_pages = pool_pages(m, eng_cfg, dev)
+    cfg = getattr(cell.arch, "port_config", model_config)(m)
+    free = None if "num_pages" in eng_cfg \
+        else torch.cuda.mem_get_info(dev)[0]
+    num_pages = pool_pages(m, eng_cfg, free, cell.arch)
     engine = InferenceEngine(
         cfg, seed=seed, max_batch=int(serve["max_batch"]),
         page_size=int(eng_cfg["page_size"]), num_pages=num_pages,
         max_seq_len=int(eng_cfg["max_seq_len"]), device=dev)
     t0 = time.perf_counter()
     engine.model.to_empty(device=dev)
-    W.fill_params(engine.model.named_parameters(), m, seed)
+    W.fill_layout(engine.model.named_parameters(), cell.arch.layout(m),
+                  seed)
     engine.load(engine.model.state_dict())
     t1 = time.perf_counter()
     if warm:
@@ -291,7 +298,8 @@ def judge(data: RunData, seed: int, dev: torch.device, eng_cfg: dict,
     seqs = [(r.call.prompt, r.tokens) for r in picked]
     got = check.served_gaps(
         data.model, seed, seqs, device=dev,
-        quantum=int(eng_cfg["prefill_quantum"]), control=control) \
+        quantum=int(eng_cfg["prefill_quantum"]), arch=data.cell.arch,
+        control=control) \
         if picked else (([], []) if control else [])
     port, ctrl = got if control else (got, None)
 

@@ -8,8 +8,14 @@ widest gap by which a served token's reference logit lies below the
 reference's best at that position (0 where the port picked the
 reference's argmax), or, where a cell's limits say so, the mean gap
 over every served token.  The control is the same reference computed with
-float8 products (``reference.model``, ``precision="fp8"``): its gap is
-that of the token it puts first, read under the float32 logits.
+float8 products (``precision="fp8"``): its gap is that of the token it
+puts first, read under the float32 logits.
+
+The reference is the one of the configuration's architecture: the
+``served_logits`` of ``archs/<arch>.py``, named by the ``model``
+section's ``arch`` (``gqa`` where it names none; ``archs/__init__.py``
+states what such a module gives).  A model the harness does not know yet
+brings its reference in a module of its own, and nothing here changes.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ from typing import Sequence
 
 import torch
 
-from portbench.reference.model import served_logits
+from portbench.reference.model import NoTF32
 
 OUTSIDE = 1e9              # the gap of a token id outside the vocabulary
 
@@ -45,31 +51,25 @@ def gap_rows(ref: torch.Tensor, picked: Sequence[int]) -> torch.Tensor:
     return torch.where(bad, torch.full_like(g, OUTSIDE), g)
 
 
-def served_gaps(m: dict, seed: int, seqs, *, device, quantum: int,
+def served_gaps(m: dict, seed: int, seqs, *, device, quantum: int, arch,
                 control: bool = False):
     """Per sequence ``(prompt, served)``, the gap of each served token
-    (a 1-D tensor on the CPU); with ``control``, also those of the fp8
-    control's picks at the same positions: ``port`` or ``(port,
+    (a 1-D tensor on the CPU) under the reference of ``arch``, the
+    configuration's ``archs/<arch>.py``; with ``control``, also those of
+    the fp8 control's picks at the same positions: ``port`` or ``(port,
     control)``."""
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        with torch.no_grad():
-            ref = served_logits(m, seed, seqs, device=device,
-                                prefill_quantum=quantum)
-            port = [gap_rows(r, s).cpu() for r, (_, s) in zip(ref, seqs)]
-            if not control:
-                return port
-            low = served_logits(m, seed, seqs, device=device,
-                                prefill_quantum=quantum, precision="fp8")
-            ctrl = [gap_rows(r, lw.argmax(dim=1).tolist()).cpu()
-                    for r, lw in zip(ref, low)]
-            return port, ctrl
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
+    served_logits = arch.served_logits
+    with NoTF32(), torch.no_grad():
+        ref = served_logits(m, seed, seqs, device=device,
+                            prefill_quantum=quantum)
+        port = [gap_rows(r, s).cpu() for r, (_, s) in zip(ref, seqs)]
+        if not control:
+            return port
+        low = served_logits(m, seed, seqs, device=device,
+                            prefill_quantum=quantum, precision="fp8")
+        ctrl = [gap_rows(r, lw.argmax(dim=1).tolist()).cpu()
+                for r, lw in zip(ref, low)]
+        return port, ctrl
 
 
 def numbers(gaps) -> dict:

@@ -7,10 +7,12 @@ cell's serving settings and correctness limits are
 ``cells/<cell>.json``, and metric ``<name>`` is read by
 ``metrics/<name>.py`` or, failing that, by ``metrics/<stem>.py`` where
 ``<stem>`` is the name up to its first dot (``decode_step_ms.batch`` and
-``decode_step_ms.online`` share ``metrics/decode_step_ms.py``), and the
-loop a traffic file names is ``loops/<loop>.py``.  Each is
-looked up under the benchmark root's ``portbench/`` first and then beside
-this package, so a cell defined in other files needs no edit here.
+``decode_step_ms.online`` share ``metrics/decode_step_ms.py``), the
+loop a traffic file names is ``loops/<loop>.py``, and the architecture a
+configuration's ``model`` section names under ``arch`` (``gqa`` where it
+names none) is ``archs/<arch>.py``.  Each is looked up under the
+benchmark root's ``portbench/`` first and then beside this package, so a
+cell defined in other files needs no edit here.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import pathlib
 import re
 from dataclasses import dataclass
 from typing import Callable, Dict, List
+
+from portbench.archs import arch_name
 
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 _NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -32,6 +36,7 @@ class Cell:
     traffic: dict         # the traffic file
     serve: dict           # the cell file
     chips: int
+    arch: object          # archs/<arch>.py of the configuration
 
 
 class Bench:
@@ -65,7 +70,8 @@ class Bench:
             config = json.load(f)
         config["name"] = conf["name"]
         return Cell(name, config, self._json("traffic", entry["traffic"]),
-                    self._json("cells", name), int(entry["chips"]))
+                    self._json("cells", name), int(entry["chips"]),
+                    self.arch(arch_name(config["model"])))
 
     def metrics(self, cell: str, trace: bool) -> List[dict]:
         """The metrics a run of ``cell`` reports: its end-to-end metrics
@@ -104,3 +110,8 @@ class Bench:
         """``run(engine, traffic, seconds, ...) -> Window`` of the loop
         ``name`` (``harness/driver.py``)."""
         return self._module("loops", self._find("loops", name, ".py")).run
+
+    def arch(self, name: str):
+        """The module ``archs/<name>.py`` (``archs/__init__.py`` states
+        what it gives)."""
+        return self._module("archs", self._find("archs", name, ".py"))

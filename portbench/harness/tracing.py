@@ -4,7 +4,10 @@ and the profiler over the window.  Installed only with ``--trace 1``.
 Each call of ``engine.model.paged_decode_step`` and
 ``engine.model.prefill_with_cache`` inside the window is timed by CUDA
 events and recorded with its shapes (rows and their lengths; cached
-positions and real chunk tokens), under a host span
+positions and real chunk tokens), read from the arguments the entry
+point names ``lengths``, and ``cache`` and ``valid_len``, however they
+are passed (so a pool passed as one tensor or as two makes no
+difference), under a host span
 ``portbench.decode_step`` or ``portbench.prefill``.  The profiler gives
 every device interval; from them come the busy seconds, each kernel's
 device time, and the idle gaps, named by the host span they fall in
@@ -17,6 +20,7 @@ named too.
 from __future__ import annotations
 
 import bisect
+import inspect
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
@@ -149,32 +153,36 @@ class Tracer:
         self._span = None
 
     def _wrap_decode(self, orig):
-        def paged_decode_step(token, k_pages, v_pages, page_table, lengths,
-                              *args, **kw):
+        sig = inspect.signature(orig)
+
+        def paged_decode_step(*args, **kw):
             if not self.active:
-                return orig(token, k_pages, v_pages, page_table, lengths,
-                            *args, **kw)
+                return orig(*args, **kw)
+            lengths = sig.bind(*args, **kw).arguments["lengths"]
             t = _events()
             with torch.profiler.record_function(_PREFIX + "decode_step"):
                 t[0].record()
-                out = orig(token, k_pages, v_pages, page_table, lengths,
-                           *args, **kw)
+                out = orig(*args, **kw)
                 t[1].record()
             self._decode.append((t, lengths.tolist()))
             return out
         return paged_decode_step
 
     def _wrap_prefill(self, orig):
-        def prefill_with_cache(tokens, cache, *args, valid_len=None, **kw):
+        sig = inspect.signature(orig)
+
+        def prefill_with_cache(*args, **kw):
             if not self.active:
-                return orig(tokens, cache, *args, valid_len=valid_len, **kw)
-            pos0 = cache["length"].tolist()
+                return orig(*args, **kw)
+            bound = sig.bind(*args, **kw).arguments
+            tokens, valid_len = bound["tokens"], bound.get("valid_len")
+            pos0 = bound["cache"]["length"].tolist()
             n = (valid_len.tolist() if valid_len is not None
                  else [tokens.shape[1]] * tokens.shape[0])
             t = _events()
             with torch.profiler.record_function(_PREFIX + "prefill"):
                 t[0].record()
-                out = orig(tokens, cache, *args, valid_len=valid_len, **kw)
+                out = orig(*args, **kw)
                 t[1].record()
             self._prefill.append((t, pos0, n))
             return out

@@ -1,10 +1,10 @@
 """Model FLOPs of the tokens the traced window computed, over the
-window's seconds at the card's bf16 peak, in %.  A token's FLOPs are 2 x
-the weights it multiplies through (the top-k and shared experts of an
-MoE layer) plus attention over its live context; decode rows attend over
-their stored tokens and the new one, prefill tokens over the positions
-before them and themselves."""
-from portbench.yardstick.costs import token_flops
+window's seconds at the card's bf16 peak, in %.  A token's FLOPs are the
+configuration's architecture's count (``archs/<arch>.py``,
+``token_flops``; for ``gqa``: 2 x the weights it multiplies through, the
+top-k and shared experts of an MoE layer, plus attention over its live
+context); decode rows attend over their stored tokens and the new one,
+prefill tokens over the positions before them and themselves."""
 from portbench.yardstick.peaks import PEAK_FLOPS_BF16
 
 
@@ -22,5 +22,5 @@ def read(run):
     t = run.trace
     if t is None or not (t.decode or t.prefill):
         return None
-    flops = token_flops(run.model, _contexts(t))
+    flops = run.cell.arch.token_flops(run.model, _contexts(t))
     return 100.0 * flops / (t.window_s * PEAK_FLOPS_BF16)

@@ -1,8 +1,10 @@
-"""The plain float32 reference of the decoder the port serves.
+"""The plain float32 reference's parts, and its entry point.
 
-It follows the configuration file's ``model`` section: pre-norm blocks
-(RMS norm scaled by ``1 + w``), grouped-query attention with rotary
-positions on split halves, a SwiGLU FFN, or DeepSeekMoE's layer (a
+The reference of an architecture is its module's ``served_logits``
+(``archs/<arch>.py``).  That of ``archs/gqa.py``, which
+``served_logits`` here runs, assembles these parts: pre-norm blocks
+with RMS norm scaled by ``1 + w``, grouped-query attention with rotary
+positions on split halves, a SwiGLU FFN or DeepSeekMoE's layer (a
 float32 softmax router, the top-k weights renormalized, routed experts
 under the port's capacity clamp, shared experts on every token), a final
 norm and an untied head.  No kernels, no cache, no batching: each
@@ -30,7 +32,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from portbench.reference import weights as W
+from portbench.archs import default
 
 _FP8_MAX = 448.0
 _Q_BLOCK = 256
@@ -42,7 +44,7 @@ def _fp8(x: torch.Tensor, dim: int) -> torch.Tensor:
     return (x / scale).to(torch.float8_e4m3fn).float() * scale
 
 
-class _Ops:
+class Ops:
     def __init__(self, precision: str):
         if precision not in ("float32", "fp8"):
             raise ValueError(f"unknown precision {precision!r}")
@@ -55,6 +57,23 @@ class _Ops:
 
     def mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return (_fp8(x, dim=-1) if self.fp8 else x) @ w
+
+
+class NoTF32:
+    """A context in which float32 products run in full float32: TF32 off
+    for cuBLAS and cuDNN, restored as it was on the way out."""
+
+    def __enter__(self):
+        self._prev = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return self
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self._prev
+        return False
 
 
 def rms_norm(x, w, eps):
@@ -95,7 +114,7 @@ def attention(q, k, v):
     return out.permute(2, 0, 1, 3).reshape(T, H * dh)
 
 
-def swiglu(x, wg, wu, wd, ops: _Ops):
+def swiglu(x, wg, wu, wd, ops: Ops):
     return ops.mm(F.silu(ops.mm(x, wg)) * ops.mm(x, wu), wd)
 
 
@@ -106,7 +125,7 @@ def capacity(n_rows: int, moe: dict, quantum: int) -> int:
                moe["top_k"])
 
 
-def moe_layer(h, p, moe: dict, prompt_len: int, quantum: int, ops: _Ops):
+def moe_layer(h, p, moe: dict, prompt_len: int, quantum: int, ops: Ops):
     """h (T, d): rows ``< prompt_len`` are the prompt's routing group."""
     E, K = moe["num_experts"], moe["top_k"]
     probs = torch.softmax(h @ p["router"].float(), dim=-1)
@@ -131,59 +150,17 @@ def moe_layer(h, p, moe: dict, prompt_len: int, quantum: int, ops: _Ops):
     return y
 
 
-def _layer_weights(m, seed, i, device, ops: _Ops):
-    pre = f"blocks.{i}."
-    out = {}
-    for key in W.layer_keys(m, i):
-        rest = key[len(pre):]                # ln1, attn.wq, moe.shared.w_up
-        name = rest.split(".", 1)[1] if "." in rest else rest
-        t = W.make(m, seed, key, device)
-        out[name] = t if t.dim() < 2 or name == "router" else ops.weight(t)
-    return out
-
-
 def served_logits(m: dict, seed: int,
                   seqs: Sequence[Tuple[Sequence[int], Sequence[int]]], *,
                   device, prefill_quantum: int = 16,
                   precision: str = "float32") -> List[torch.Tensor]:
-    """Teacher-forced logits at every served position.
+    """Teacher-forced logits at every served position, by the ``gqa``
+    reference (``archs/gqa.py``).
 
     ``seqs`` holds ``(prompt, served)`` token lists.  Each sequence runs
     over ``prompt + served[:-1]``; the result for it is ``(len(served),
     vocab_size)`` float32 on ``device``: row j is the logits that chose
     ``served[j]``.  Weights come from ``weights.make`` at ``seed``."""
-    ops = _Ops(precision)
-    d, h, hkv = m["d_model"], m["num_heads"], m["num_kv_heads"]
-    dh = m.get("head_dim") or d // h
-    eps = m.get("norm_eps", 1e-6)
-    theta = m.get("rope_theta", 10000.0)
-    moe = m.get("moe")
-    toks = [list(p) + list(s[:-1]) for p, s in seqs]
-    embed = W.make(m, seed, "embed", device)
-    xs = [embed[torch.as_tensor(t, device=device)].float() for t in toks]
-    del embed
-    for i in range(m["num_layers"]):
-        p = _layer_weights(m, seed, i, device, ops)
-        for j, x in enumerate(xs):
-            T = x.shape[0]
-            a = rms_norm(x, p["ln1"], eps)
-            q = rope(ops.mm(a, p["wq"]).reshape(T, h, dh), theta)
-            k = rope(ops.mm(a, p["wk"]).reshape(T, hkv, dh), theta)
-            v = ops.mm(a, p["wv"]).reshape(T, hkv, dh)
-            x = x + ops.mm(attention(q, k, v), p["wo"])
-            a = rms_norm(x, p["ln2"], eps)
-            if "router" in p:
-                x = x + moe_layer(a, p, moe, len(seqs[j][0]),
-                                  prefill_quantum, ops)
-            else:
-                x = x + swiglu(a, p["w_gate"], p["w_up"], p["w_down"], ops)
-            xs[j] = x
-        del p
-    final = W.make(m, seed, "final_norm", device)
-    head = ops.weight(W.make(m, seed, "lm_head", device))
-    out = []
-    for (prompt, served), x in zip(seqs, xs):
-        rows = x[len(prompt) - 1:len(prompt) - 1 + len(served)]
-        out.append(ops.mm(rms_norm(rows, final, eps), head)
-                   [:, :m["vocab_size"]])
-    return out
+    return default(m).served_logits(
+        m, seed, seqs, device=device, prefill_quantum=prefill_quantum,
+        precision=precision)

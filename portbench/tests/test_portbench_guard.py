@@ -1,6 +1,6 @@
 """The import guard: no module of JAX or of the JAX package in a run,
-compared by whole top-level names; the reference imports nothing of the
-port."""
+compared by whole top-level names; the reference, and every
+architecture's module beside it, imports nothing of the port."""
 import ast
 import json
 import pathlib
@@ -30,12 +30,21 @@ def _imports(path):
 
 
 def test_reference_imports_nothing_of_the_port():
-    for path in sorted((PB / "reference").glob("*.py")):
-        tops = {n.split(".")[0] for n in _imports(path)}
+    paths = sorted((PB / "reference").glob("*.py")) \
+        + sorted((PB / "archs").glob("*.py"))
+    assert PB / "archs" / "gqa.py" in paths
+    for path in paths:
+        names = set(_imports(path))
+        tops = {n.split(".")[0] for n in names}
         assert not tops & {"repro_torch", "repro", "jax", "flax", "jaxlib"}, \
             path
         assert tops <= {"__future__", "math", "zlib", "typing", "torch",
                         "portbench"}, (path, tops)
+        # of the benchmark, only the reference, the architectures and
+        # the yardstick: not the harness, which drives the port
+        ours = {n.split(".")[1] for n in names
+                if n.startswith("portbench.")}
+        assert ours <= {"reference", "archs", "yardstick"}, (path, ours)
     for path in sorted(PB.rglob("*.py")):
         if "tests" in path.parts:
             continue
@@ -56,9 +65,12 @@ def test_loading_the_harness_loads_no_jax():
     tops = set(json.loads(out.stdout.strip().splitlines()[-1]))
     assert not tops & {"jax", "jaxlib", "flax", "repro"}
     code = ("import sys; sys.path[:0] = [%r];"
-            "import portbench.reference.model, portbench.reference.weights;"
+            "import portbench.reference.model, portbench.reference.weights,"
+            " portbench.archs.gqa;"
+            "from portbench.harness.spec import Bench;"
+            "Bench(%r).arch('gqa');"
             "print(sorted(m for m in sys.modules if m.startswith('repro')))"
-            % str(ROOT))
+            % (str(ROOT), str(ROOT)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, check=True)
     assert out.stdout.strip() == "[]"

@@ -1,16 +1,18 @@
 """Operations and bytes of the kernels and of the model, from shapes.
 
 ``kernel_time_bound`` and ``paged_decode_cost`` copy the arithmetic of
-``repro_torch/launch/roofline.py``; ``flash_prefill_cost`` and
-``token_flops`` are the benchmark's own.  Every count is what the inputs
-need (valid query-key pairs, live keys), never what a kernel happens to
-read, so a share of the bound cannot pass 100% unless the time leaves out
-work or a count is too high.
+``repro_torch/launch/roofline.py``; ``flash_prefill_cost`` is the
+benchmark's own, and ``matmul_params`` and ``token_flops`` are those of
+``archs/gqa.py`` (an architecture's own are its module's).  Every count is
+what the inputs need (valid query-key pairs, live keys), never what a
+kernel happens to read, so a share of the bound cannot pass 100% unless
+the time leaves out work or a count is too high.
 """
 from __future__ import annotations
 
 from typing import Iterable, Sequence, Tuple
 
+from portbench.archs import default
 from portbench.yardstick.peaks import HBM_BW, PEAK_FLOPS_BF16
 
 
@@ -59,37 +61,12 @@ def flash_prefill_cost(H: int, Hkv: int, Dh: int, pos0: int, n: int, *,
 
 
 def matmul_params(m: dict) -> int:
-    """Weights a token multiplies through (router, routed experts it
-    picks, shared experts, attention and FFN projections, the head); the
-    embedding is a lookup and is not counted.  ``m`` is a configuration
-    file's ``model`` section."""
-    d, h, hkv = m["d_model"], m["num_heads"], m["num_kv_heads"]
-    dh = m.get("head_dim") or d // h
-    vpad = -(-m["vocab_size"] // 256) * 256
-    attn = d * h * dh + 2 * d * hkv * dh + h * dh * d
-    moe = m.get("moe")
-    total = d * vpad
-    for i in range(m["num_layers"]):
-        total += attn
-        if moe is None:
-            total += 3 * d * m["d_ff"]
-        elif i < moe.get("first_dense_layers", 0):
-            total += 3 * d * moe["d_ff_dense"]
-        else:
-            total += (moe["top_k"] + moe.get("num_shared_experts", 0)) \
-                * 3 * d * moe["d_ff_expert"] + d * moe["num_experts"]
-    return total
+    """Weights a token of a ``gqa`` configuration's ``model`` section
+    multiplies through."""
+    return default(m).matmul_params(m)
 
 
 def token_flops(m: dict, contexts: Iterable[int]) -> float:
-    """Model FLOPs of tokens that attend over ``contexts`` keys each: 2 x
-    the weights a token multiplies through, plus 4 H Dh per key in every
-    layer."""
-    d, h = m["d_model"], m["num_heads"]
-    dh = m.get("head_dim") or d // h
-    per_key = 4.0 * h * dh * m["num_layers"]
-    n, keys = 0, 0
-    for c in contexts:
-        n += 1
-        keys += c
-    return 2.0 * matmul_params(m) * n + per_key * keys
+    """Model FLOPs of ``gqa`` tokens that attend over ``contexts`` keys
+    each."""
+    return default(m).token_flops(m, contexts)
