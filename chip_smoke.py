@@ -116,7 +116,18 @@ each:
    encoder, self- and cross-attention, decode for both, launch counts
    asserted; its profile; step parity; batch invariance of the 300-frame
    request, float32 asserted);
-11. distribution (``repro_torch.distribution``): the sharded decode at
+11. latent attention: the latent decode kernel against its plain version
+   at the dsv2.halo_nodes cell's shapes (768 rows of 128 heads over the
+   576/512 latent, pages of 8, contexts up to 608, a padding row at 0,
+   each row's last key dropped as the control that must fail), timed
+   beside the plain version, with its bound; then DeepSeek-V2 as that
+   cell's card holds it (full width, 30 of 60 layers, experts 0-19 of
+   160) served through the engine (a shared prefix, cold prompts, a
+   request admitted mid-decode) with the launch counts reset just
+   before: one flash launch a layer a prefill call on the tensor cores,
+   one latent launch a layer a decode step, the model's counters, no
+   paged launch and no plain version;
+12. distribution (``repro_torch.distribution``): the sharded decode at
    deepseek-67b's attention width (64 query and 8 KV heads of 128, bf16,
    B=8 over T=32768 slots), with and without a 4096-key window, over a
    one-rank NCCL group (bitwise the unsharded kernel) and over four
@@ -131,7 +142,7 @@ each:
    feedback below twice one step's error, the JAX recipe (each rank's
    own scale, the sum dequantized by the largest) as the control that
    must fail;
-12. training, each model freed before the next: the flash backward
+13. training, each model freed before the next: the flash backward
    (``[kernels.flash_bwd]``) at qwen3's, the hybrid's (also with a
    128-key window) and whisper's encoder and cross-attention shapes, f32
    and bf16 against its plain version, the forward's log-sum-exp, a row
@@ -152,7 +163,7 @@ each:
    flash and scan backward counted, every flash backward on the tensor
    cores; ``.profile`` one step) and ``[train.audio]`` (whisper-tiny,
    3 steps over 1500 frames: causal, non-causal and cross backward);
-13. the roofline on the card (``[roofline.card]``): qwen3-1.7b's paged
+14. the roofline on the card (``[roofline.card]``): qwen3-1.7b's paged
    decode step (B=8, in the variant the table names, which its line
    prints) and chunk prefill, timed in 4., and
    ``[train.qwen3]``'s step, each counted by the port's op-cost counter
@@ -163,7 +174,7 @@ each:
    must fall in a band of ``model_flops`` (``ROOFLINE_BANDS``); the
    share bound / measured, and the dry run's per-device bytes for the
    train step beside the card's peak (logged);
-14. the dry run (``[dryrun.sweep]``, ``repro_torch.launch.dryrun``, no
+15. the dry run (``[dryrun.sweep]``, ``repro_torch.launch.dryrun``, no
    card: meta tensors over a fake process group) over all ten archs and
    four shapes on the 16 x 16 mesh and the 2 x 16 x 16 mesh, in seven
    processes started after the last timed phase: no cell may fail,
@@ -171,7 +182,7 @@ each:
    full-attention archs at long_500k; each cell's roofline row, the
    2 x 16 x 16 cells done in the budget (``SWEEP_BUDGET_S``), the
    sweep's seconds;
-15. the wall time (and each section's seconds, ``[phase]``, as it ends),
+16. the wall time (and each section's seconds, ``[phase]``, as it ends),
    a ``{"kernels": [...]}`` line (the paged kernel's
    single and blocked arms as entries of their own; the two backward
    kernels last), the card's ``nvidia-smi`` line, and the last line
@@ -244,6 +255,7 @@ def card_setup(torch, np):
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.latent_decode_attention import ops as ld_ops
     from repro_torch.kernels.paged_decode_attention import ops as pd_ops
     from repro_torch.kernels.rglru_scan import ops as lru_ops
 
@@ -264,6 +276,7 @@ def card_setup(torch, np):
                       (pd_ops, "paged_decode_attention_ref"),
                       (pd_ops, "fused_paged_decode_attention_ref"),
                       (da_ops, "decode_attention_ref"),
+                      (ld_ops, "latent_decode_attention_ref"),
                       (lru_ops, "linear_scan_ref"),
                       (rglru, "linear_scan_ref"),
                       # the backward's (the training phases)
@@ -3577,6 +3590,195 @@ def audio_phases(torch, np, get_config, tokenizer, InferenceEngine,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# latent attention: DeepSeek-V2 on the paged path
+# ---------------------------------------------------------------------------
+
+# the dsv2.halo_nodes cell's shapes: its rows, its page and its longest
+# call (a 512-token prompt and 96 new tokens)
+MLA_ROWS, MLA_CONTEXT, MLA_PAGE = 768, 608, 8
+
+
+def latent_tolerance(torch, ref_fn, q, pool, pt, lengths, scale, v_dim):
+    """The plain version's output in float32 and the rule a bfloat16
+    result is held to, the card test's (tests/test_torch_deepseek_v2.py):
+    2e-3 + 8e-3 |ref| + 3.125e-2 sqrt(sum_j p_j^2 v_j^2), the last the
+    noise of probabilities rounded to bfloat16 for the value product."""
+    ref = ref_fn(q.float(), pool, pt, lengths, scale=scale,
+                 v_dim=v_dim).float()
+    B = pt.shape[0]
+    keys = pool[pt.long()].reshape(B, -1, pool.shape[-1])
+    logits = torch.einsum("bhd,btd->bht", q.float(), keys) * scale
+    t = torch.arange(keys.shape[1], device=q.device)
+    valid = t[None, :] <= lengths[:, None].long()
+    p = torch.softmax(logits.masked_fill(~valid[:, None], float("-inf")), -1)
+    p = torch.nan_to_num(p)
+    noise = torch.einsum("bht,btd->bhd", p.square(),
+                         keys[..., :v_dim].square()).sqrt()
+    return ref, 2e-3 + 8e-3 * ref.abs() + 3.125e-2 * noise
+
+
+def kernels_latent(torch, ld_ops, latent_decode_attention_ref, scale):
+    """The latent decode kernel against its plain version at the cell's
+    shapes: 768 rows of 128 heads over the 576-wide latent (values its
+    first 512), pages of 8 in a shuffled f32 pool, contexts 1 to 608 and a
+    padding row (0); each row's last key dropped as the control that must
+    fail; then timed beside the plain version, with its bound from the
+    valid keys.  Returns its kernels entry."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    B, H, ps = MLA_ROWS, 128, MLA_PAGE
+    D, dv = ld_ops.LATENT_DIM, ld_ops.V_DIM
+    n_pages = -(-MLA_CONTEXT // ps)
+    lengths = torch.randint(0, MLA_CONTEXT, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0], lengths[1], lengths[2] = -1, MLA_CONTEXT - 1, 0
+    P = B * n_pages + 3
+    pt = torch.randperm(P, generator=gen, device=dev)[:B * n_pages] \
+        .view(B, n_pages).to(torch.int32)
+    # the engine's latents are bf16 numbers in an f32 pool
+    pool = torch.randn((P, ps, D), generator=gen, device=dev) \
+        .bfloat16().float()
+    q = (0.5 * torch.randn((B, H, D), generator=gen, device=dev)).bfloat16()
+
+    def run(lens=lengths):
+        return ld_ops.latent_decode_attention(q, pool, pt, lens, scale=scale,
+                                              v_dim=dv)
+
+    def plain():
+        return latent_decode_attention_ref(q, pool, pt, lengths, scale=scale,
+                                           v_dim=dv)
+
+    n0 = ld_ops.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert ld_ops.launches == n0 + 1 and out.dtype == torch.bfloat16
+    ref, tol = latent_tolerance(torch, latent_decode_attention_ref, q, pool,
+                                pt, lengths, scale, dv)
+    diff = (out.float() - ref).abs()
+    assert bool((diff <= tol).all()), \
+        f"latent kernel off the rule by {(diff - tol).max().item():.3e}"
+    assert bool((out[0] == 0).all()), "the padding row is not 0"
+    rms = ((out.float() - ref).square().mean().sqrt()
+           / ref.square().mean().sqrt()).item()
+    short = torch.where(lengths > 0, lengths - 1, lengths)
+    assert bool(((run(short).float() - ref).abs() > tol).any()), \
+        "the control (each row's last key dropped) passed"
+    err = diff.max().item()
+    del ref, tol, diff
+    live = lengths[lengths >= 0]
+    keys = int((live.long() + 1).sum().item())
+    nbytes = keys * D * 4 + live.numel() * H * (D + dv) * 2
+    b_ms, b_by = bound(nbytes, 2 * H * (D + dv) * keys, "bfloat16")
+    entry = {
+        "name": "latent_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/latent_decode_attention.cu",
+        "replaces": "none: the JAX package has no latent attention",
+        "launches": None, "max_abs_err": err,
+        "ms": time_ms(torch, run, iters=20),
+        "device_ms": profile_calls(torch, run, 20)[1],
+        "plain_ms": time_ms(torch, plain, iters=5, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library_note": "no single PyTorch call takes a paged latent pool"}
+    log("kernels.latent_decode",
+        shape=f"B={B},H={H},D={D},v={dv},page={ps},contexts=1..{MLA_CONTEXT},"
+        f"bf16 q,f32 pool,valid_keys={keys}", vs_plain="ok",
+        tolerance="2e-3+8e-3|ref|+3.125e-2*sqrt(sum p^2 v^2)",
+        max_abs_err=f"{err:.3e}", rms_err_share=f"{rms:.3e}",
+        padding_row=0, control_last_key_dropped="fails",
+        ms=f"{entry['ms']:.4f}", device_ms=f"{entry['device_ms']:.4f}",
+        plain_ms=f"{entry['plain_ms']:.4f}", bound_ms=f"{b_ms:.5f}",
+        bound_by=b_by, bytes=nbytes,
+        share_of_bound=f"{100 * b_ms / entry['device_ms']:.2f}%")
+    return entry
+
+
+def mla_phases(torch, np, tokenizer, InferenceEngine, fa_ops, pd_ops,
+               ld_ops, plain_calls):
+    """DeepSeek-V2 as the dsv2.halo_nodes cell's card holds it (full
+    width, 30 of 60 layers, experts 0-19 of 160; random weights from seed
+    0, engine defaults) served through the engine: a shared prefix with a
+    copy-on-write partial page, cold prompts and a request admitted
+    mid-decode, with every launch count set to 0 just before the run and
+    read just after: one flash launch a layer a prefill call (all on the
+    tensor cores, at Dh 256), one latent launch a layer a decode step, no
+    paged launch and no plain version; the model's counters
+    (``EngineStats.probes``) beside them.  Returns the launches."""
+    from repro_torch.configs.deepseek_v2 import CONFIG as cfg
+    eng = InferenceEngine(cfg, seed=0)
+    torch.cuda.empty_cache()
+    load_s = eng.load()
+    torch.cuda.empty_cache()
+    model, n_layers = eng.model, cfg.num_layers
+    n_moe = n_layers - cfg.moe.first_dense_layers
+    calls = {"prefill": 0, "decode": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    model.prefill_with_cache = counted("prefill", model.prefill_with_cache)
+    model.paged_decode_step = counted("decode", model.paged_decode_step)
+    prompts, n_shared = family_prompts(
+        np, tokenizer, cfg.vocab_size, 31,
+        {"shared": 100, "share_a": (80, True), "share_b": (190, True),
+         "cold_c": (250, False), "cold_d": (120, False)})
+    max_new = 16
+    n_plain = plain_calls["n"]
+    for ops in (fa_ops, pd_ops, ld_ops):
+        ops.reset_counts()
+    before = eng.stats.as_dict()
+    t_run = time.perf_counter()
+    outs = serve_requests(eng, prompts, max_new,
+                          ("share_a", "cold_c", "cold_d"), ("share_b",))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = {"flash_attention": fa_ops.launches,
+                "flash_tensor_core": fa_ops.tensor_core_launches,
+                "latent_decode_attention": ld_ops.launches,
+                "paged_decode_attention": pd_ops.launches,
+                "plain_calls": plain_calls["n"] - n_plain}
+    after = eng.stats.as_dict()
+    probes = {k: after[k] - before[k] for k in
+              ("expert_slots_held", "moe_layer_calls",
+               "latent_decode_launches")}
+    assert all(len(o) == max_new for o in outs.values()), "short output"
+    assert after["prefix_hits"] >= 1, after
+    assert calls["prefill"] > 0 and calls["decode"] > 0, calls
+    assert launches["flash_attention"] == n_layers * calls["prefill"], \
+        (launches, calls)
+    assert launches["flash_tensor_core"] == launches["flash_attention"], \
+        "a bf16 flash launch missed the tensor cores"
+    assert launches["latent_decode_attention"] == \
+        n_layers * calls["decode"], (launches, calls)
+    assert probes["latent_decode_launches"] == \
+        launches["latent_decode_attention"], probes
+    assert probes["moe_layer_calls"] == \
+        n_moe * (calls["prefill"] + calls["decode"]), (probes, calls)
+    assert launches["paged_decode_attention"] == 0, launches
+    assert launches["plain_calls"] == 0, \
+        "a plain version ran on the CUDA path"
+    log("mla.run", model=f"{cfg.name}(full width, {n_layers} of 60 layers, "
+        f"{cfg.routing.held_count} of {cfg.moe.num_experts} experts held, "
+        f"{cfg.num_heads} heads, latent "
+        f"{cfg.mla.kv_lora_rank}+{cfg.mla.qk_rope_head_dim})", dtype="bf16",
+        params_gb=f"{eng.param_bytes() / 1e9:.3f}", load_s=f"{load_s:.3f}",
+        requests=len(outs), tokens_each=max_new, shared_prefix=n_shared,
+        prefix_hits=after["prefix_hits"], prefill_calls=calls["prefill"],
+        decode_steps=calls["decode"], run_s=f"{run_s:.3f}",
+        flash_launches=launches["flash_attention"],
+        flash_tensor_core_launches=launches["flash_tensor_core"],
+        latent_launches=launches["latent_decode_attention"],
+        paged_launches=launches["paged_decode_attention"],
+        plain_calls=launches["plain_calls"],
+        expert_slots_held=probes["expert_slots_held"],
+        moe_layer_calls=probes["moe_layer_calls"])
+    free_engine(torch, eng)
+    return launches
+
+
 # --------------------------------------------------------------- training
 
 def flash_bwd_pairs(torch, qp, kvp, causal, window):
@@ -4860,9 +5062,11 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v2 import CONFIG as dsv2
     from repro_torch.engine import tokenizer
     from repro_torch.engine.engine import InferenceEngine
     from repro_torch.engine.models import build_model, layers, moe
+    from repro_torch.engine.models.mla import softmax_scale
     from repro_torch.kernels import build
     from repro_torch.kernels.common import NEG_INF
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -4871,6 +5075,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
+    from repro_torch.kernels.latent_decode_attention import ops as ld_ops
+    from repro_torch.kernels.latent_decode_attention.ref import (
+        latent_decode_attention_ref)
     from repro_torch.kernels.paged_decode_attention import ops as pd_ops
     from repro_torch.kernels.paged_decode_attention.ref import (
         paged_decode_attention_ref, scatter_append_ref)
@@ -5225,7 +5432,18 @@ def main() -> int:
             e[f"{key}_launches"] = r[count]
     kernels.extend(arm_entries)
 
-    # ------------------------------------------------- 11. distribution
+    # ------------------------------------------- 11. latent attention
+    latent = kernels_latent(torch, ld_ops, latent_decode_attention_ref,
+                            softmax_scale(dsv2.mla))
+    mla = mla_phases(torch, np, tokenizer, InferenceEngine, fa_ops, pd_ops,
+                     ld_ops, plain_calls)
+    latent["launches"] = mla["latent_decode_attention"]
+    kernels[0]["dsv2_launches"] = mla["flash_attention"]
+    kernels[0]["dsv2_tensor_core_launches"] = mla["flash_tensor_core"]
+    kernels.append(latent)
+    clock.lap("mla")
+
+    # ------------------------------------------------- 12. distribution
     dist_res = distribution_phases(torch, da_ops, decode_attention_ref,
                                    plain_calls)
     kernels[2]["distribution_launches"] = dist_res.pop("launches")
@@ -5234,7 +5452,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.lap("distribution")
 
-    # ----------------------------------------------------- 12. training
+    # ----------------------------------------------------- 13. training
     flash_bwd = kernels_flash_bwd(torch, F, fa_ops, flash_attention_bwd_ref,
                                   flash_attention_lse_ref)
     scan_bwd = kernels_scan_bwd(torch, lru_ops, linear_scan_ref,
@@ -5258,12 +5476,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.lap("training")
 
-    # --------------------------------------------------- 13. roofline.card
+    # --------------------------------------------------- 14. roofline.card
     roofline_card_phase(torch, get_config, engine_profile, engine_shapes,
                         trained["qwen3_step"])
     clock.lap("roofline.card")
 
-    # --------------------------------------------------- 14. dryrun.sweep
+    # --------------------------------------------------- 15. dryrun.sweep
     # after the last timed phase: the dry run needs no card, and its
     # processes would share the host with the timed phases
     import atexit
@@ -5275,7 +5493,7 @@ def main() -> int:
     dryrun_sweep_phase(sweep, SWEEP_BUDGET_S)
     clock.lap("dryrun.sweep")
 
-    # ------------------------------------------------------ 15. the report
+    # ------------------------------------------------------ 16. the report
     log("done", wall_s=f"{time.perf_counter() - t_start:.3f}",
         build_s=f"{build.build_seconds:.3f}")
     print(json.dumps({"kernels": kernels}))

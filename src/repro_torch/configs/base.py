@@ -47,6 +47,45 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2, arXiv:2405.04434): the
+    query through a ``q_lora_rank`` bottleneck, keys and values from one
+    ``kv_lora_rank`` latent a token, a ``qk_rope_head_dim`` rotary key
+    shared by all heads, and YaRN rotary positions (``rope_factor`` over
+    ``original_max_position`` with the ``beta_fast``/``beta_slow``
+    correction range; ``mscale``/``mscale_all_dim`` scale the scores)."""
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    rope_factor: float = 1.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+
+@dataclass(frozen=True)
+class RoutingConfig:
+    """DeepSeek-V2's expert layer: ``group_limited_greedy`` routing over
+    all ``MoEConfig.num_experts`` (the softmax's experts in ``n_group``
+    groups, each scored by its best expert, the top ``topk_group`` groups
+    kept, then the top-k among them), weights times
+    ``routed_scaling_factor`` (renormalized first with
+    ``norm_topk_prob``), dispatched dropless; the layer holds experts
+    ``held_start .. held_start + held_count - 1`` and computes their part
+    of the result alone (``held_count`` 0: all of them)."""
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = False
+    held_start: int = 0
+    held_count: int = 0
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                          # dense|moe|audio|vlm|ssm|hybrid
@@ -77,6 +116,16 @@ class ModelConfig:
     # --- attention implementation: "cuda" (hand kernels) or "torch" ---
     attention_impl: str = "cuda"
     supports_partial_prefix: bool = True
+    # --- DeepSeek-V2's latent attention and expert layer (models/mla.py)
+    mla: Optional[MLAConfig] = None
+    routing: Optional[RoutingConfig] = None
+
+    def __post_init__(self):
+        # a configuration file's nested groups may arrive as dicts
+        for name, kind in (("mla", MLAConfig), ("routing", RoutingConfig)):
+            value = getattr(self, name)
+            if isinstance(value, dict):
+                object.__setattr__(self, name, kind(**value))
 
     @property
     def resolved_head_dim(self) -> int:

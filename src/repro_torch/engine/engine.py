@@ -66,7 +66,7 @@ import time
 import zlib
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -107,13 +107,21 @@ class EngineStats:
     warm_evictions: int = 0              # warm sequences freed
     tree_rebuilds: int = 0               # radix-tree prunes
     spans: SpanRecorder = field(default_factory=SpanRecorder, repr=False)
+    # the model's own counters, where it keeps some (``counters()``)
+    probes: Optional[Callable[[], Dict[str, float]]] = field(
+        default=None, repr=False)
 
     def as_dict(self) -> Dict[str, float]:
-        """The counters, and the engine loop's span totals flattened
-        (``SpanRecorder.as_dict``).  The key set is fixed at construction:
-        another thread may call this while the loop runs."""
-        out = {k: v for k, v in self.__dict__.items() if k != "spans"}
+        """The counters, the engine loop's span totals flattened
+        (``SpanRecorder.as_dict``) and the model's ``probes`` (a device
+        counter among them is read here, the only place it is).  The key
+        set is fixed at construction: another thread may call this while
+        the loop runs."""
+        out = {k: v for k, v in self.__dict__.items()
+               if k not in ("spans", "probes")}
         out.update(self.spans.as_dict())
+        if self.probes is not None:
+            out.update(self.probes())
         return out
 
 
@@ -254,6 +262,9 @@ class InferenceEngine:
         self.admission_window = admission_window
         self._loaded = False     # guarded-by: self._cv | engine-loop
         self.stats = EngineStats()
+        # a model's own counters (latent attention's expert layer), read
+        # with the engine's
+        self.stats.probes = getattr(self.model, "counters", None)
         # the loop thread's spans (runs-on: engine-loop only)
         self._span = self.stats.spans.span
         self.warm_prefixes = RadixPrefixTree()  # guarded-by: self._cv | engine-loop
@@ -261,6 +272,13 @@ class InferenceEngine:
         # decode straight over the pages, or (dense rows, and the
         # paged_decode=False reference arm) over a dense view
         self._use_paged = bool(self._paged_layout) and paged_decode
+        # a latent pool (no KV heads: latent attention) has no dense view
+        self._latent = bool(self._paged_layout) \
+            and self._paged_layout[1] is None
+        if self._latent and not paged_decode:
+            raise NotImplementedError(
+                f"{cfg.name}: a latent pool is decoded paged only "
+                f"(paged_decode=False has no dense view of it)")
         # the paged kernel's (variant, pages_per_block), resolved once:
         # kernel_variant, else the kernel's per-shape table at this pool
         if self._use_paged:
@@ -954,16 +972,18 @@ class InferenceEngine:
         device.  Made in the cache's (L, rows, ...) layout, so that
         ``paged_cache_view``'s transpose copies nothing."""
         layers, heads, dh = self._paged_layout
-        k_rows = torch.zeros((layers, rows, T1, heads, dh),
+        row = (dh,) if self._latent else (heads, dh)
+        k_rows = torch.zeros((layers, rows, T1) + row,
                              dtype=self.model.dtype,
                              device=self.device).transpose(0, 1)
-        v_rows = torch.zeros_like(k_rows)
+        v_rows = None if self._latent else torch.zeros_like(k_rows)
         n = 0
         if prefix is not None:
             kp, vp = prefix
             n = kp.shape[1]
             k_rows[0, :, :n] = kp
-            v_rows[0, :, :n] = vp
+            if vp is not None:
+                v_rows[0, :, :n] = vp
         return self._cache_view(k_rows, v_rows, [n] * rows)
 
     def _pf_pad(self, n: int) -> int:
@@ -1073,8 +1093,9 @@ class InferenceEngine:
                 suffix, cache, valid_len=valid)
         self.stats.prefill_rows += 1
         with self._span("engine.admit.pool"):
-            k_row, v_row = self.model.cache_kv_rows_dev(cache, 0, S)
-            kv.extend_sequence(seq, k_row[:, shared:], v_row[:, shared:])
+            rows = self.model.cache_kv_rows_dev(cache, 0, S)
+            kv.extend_sequence(seq, *(None if r is None else r[:, shared:]
+                                      for r in rows))
         return logits
 
     # ---------------------------------------------------------------- decode
@@ -1280,8 +1301,13 @@ class InferenceEngine:
     # requires: self._cv | engine-loop
     def _maybe_prune_tree(self) -> None:
         """Rebuild the radix tree from live donors once stale entries
-        dominate, so a long-lived engine does not grow it forever."""
-        if self.warm_prefixes.num_sequences <= 8 * self.max_warm_sequences:
+        dominate, so a long-lived engine does not grow it forever.  The
+        bar is at least twice the live donors (warm and active), so that
+        a batch wider than the warm set does not rebuild on every
+        retirement."""
+        live = len(self._warm) + len(self._active)
+        if self.warm_prefixes.num_sequences <= max(
+                8 * self.max_warm_sequences, 2 * live):
             return
         tree = RadixPrefixTree()
         for seq_id, prompt in self._warm.items():

@@ -19,6 +19,12 @@ partial trailing page may be aliased too, in which case the first append
 by either sequence into a page with refcount > 1 copies it first
 (copy-on-write), so neither sequence can corrupt the other's tokens.
 
+A latent pool (``kv_heads`` None: DeepSeek-V2's multi-head latent
+attention) holds one tensor ``k`` of shape ``(num_layers, num_pages,
+page_size, head_dim)``, one latent a token a layer, and ``v`` is None:
+its bytes are ``head_dim x 4`` a token a layer, with refcounts, prefix
+aliasing and copy-on-write as above.  Its sequences do not migrate.
+
 Host staging happens only at the migration boundary
 (``export_sequence``/``import_sequence``): contiguous f32 numpy
 ``(L, T, Hkv, Dh)`` blocks, the same wire format as the JAX package, so
@@ -53,7 +59,7 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
     out), each of which waits for the device."""
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
-                 kv_heads: int, head_dim: int, dtype=torch.float32,
+                 kv_heads: Optional[int], head_dim: int, dtype=torch.float32,
                  device="cuda",
                  on_sync: Optional[Callable[[int], None]] = None):
         self.num_layers = num_layers
@@ -63,9 +69,12 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         self.head_dim = head_dim
         self.dtype = dtype
         self.device = torch.device(device)
-        shape = (num_layers, num_pages, page_size, kv_heads, head_dim)
+        # a token's row: (Hkv, Dh), or a latent's (Dh,)
+        self._row = (head_dim,) if kv_heads is None else (kv_heads, head_dim)
+        shape = (num_layers, num_pages, page_size) + self._row
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v = None if kv_heads is None else torch.zeros(
+            shape, dtype=dtype, device=self.device)
         self.refcount = np.zeros((num_pages,), np.int64)
         self.free_pages: List[int] = list(range(num_pages - 1, -1, -1))
         self.sequences: Dict[int, SequenceEntry] = {}
@@ -112,22 +121,23 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
 
     def _page_blocks(self, a) -> torch.Tensor:
         """(L, S, Hkv, Dh) -> (L, n_pages, page, Hkv, Dh), zero-padded to
-        whole pages, in pool dtype on device."""
+        whole pages, in pool dtype on device (a latent: (L, S, Dh) ->
+        (L, n_pages, page, Dh))."""
         a = self._on_device(a)
         S = a.shape[1]
         ps = self.page_size
         n = -(-S // ps)
         pad = n * ps - S
         if pad:
-            a = F.pad(a, (0, 0, 0, 0, 0, pad))
-        return a.reshape(self.num_layers, n, ps, self.kv_heads,
-                         self.head_dim)
+            a = F.pad(a, (0, 0) * len(self._row) + (0, pad))
+        return a.reshape(self.num_layers, n, ps, *self._row)
 
     def _write_pages(self, pages: List[int], k, v) -> None:
         """Write whole-page blocks into freshly allocated pages."""
         idx = self._index(pages)
         self.k[:, idx] = self._page_blocks(k)
-        self.v[:, idx] = self._page_blocks(v)
+        if self.v is not None:
+            self.v[:, idx] = self._page_blocks(v)
 
     def _cow_last_page(self, e: SequenceEntry) -> int:
         """Make the trailing page of ``e`` private (device page copy when
@@ -136,7 +146,8 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         if self.refcount[p] > 1:                 # copy-on-write partial page
             newp = self._alloc_page()
             self.k[:, newp] = self.k[:, p]
-            self.v[:, newp] = self.v[:, p]
+            if self.v is not None:
+                self.v[:, newp] = self.v[:, p]
             self._unref_page(p)
             e.page_ids[-1] = newp
             p = newp
@@ -147,7 +158,8 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
                      shared_from: Optional[int] = None,
                      shared_len: int = 0) -> int:
         """Store a prefilled sequence's KV.  k/v: (L, S, Hkv, Dh) device
-        tensors (or numpy at the import boundary) or None.
+        tensors (or numpy at the import boundary) or None; a latent
+        pool's k is (L, S, Dh) and its v None.
 
         If ``shared_from`` names an existing sequence, its first
         ``shared_len`` tokens are aliased.  A non-page-aligned
@@ -193,8 +205,9 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         fill the trailing partial page first (copy-on-write if aliased),
         then whole pages."""
         e = self.sequences[seq_id]
+        latent = self.v is None
         k = self._on_device(k)
-        v = self._on_device(v)
+        v = None if latent else self._on_device(v)
         S = k.shape[1]
         ps = self.page_size
         off = e.length % ps
@@ -202,9 +215,10 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
             p = self._cow_last_page(e)
             n = min(ps - off, S)
             self.k[:, p, off:off + n] = k[:, :n]
-            self.v[:, p, off:off + n] = v[:, :n]
+            if not latent:
+                self.v[:, p, off:off + n] = v[:, :n]
             e.length += n
-            k, v = k[:, n:], v[:, n:]
+            k, v = k[:, n:], None if latent else v[:, n:]
             S -= n
         if S:
             pages = [self._alloc_page() for _ in range(-(-S // ps))]
@@ -216,7 +230,8 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         """k_t/v_t: (L, Hkv, Dh), one decode step's KV."""
         p, slot = self.prepare_append(seq_id)
         self.k[:, p, slot] = self._on_device(k_t)
-        self.v[:, p, slot] = self._on_device(v_t)
+        if self.v is not None:
+            self.v[:, p, slot] = self._on_device(v_t)
         self.commit_append(seq_id)
 
     def append_tokens(self, seq_ids: List[int], k_t, v_t) -> None:
@@ -228,7 +243,8 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         pages, slots = self.prepare_appends(seq_ids)
         pi, si = self._index(pages), self._index(slots)
         self.k[:, pi, si] = self._on_device(k_t)
-        self.v[:, pi, si] = self._on_device(v_t)
+        if self.v is not None:
+            self.v[:, pi, si] = self._on_device(v_t)
         self.commit_appends(seq_ids)
 
     def prepare_append(self, seq_id: int) -> Tuple[int, int]:
@@ -266,13 +282,17 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
             self.commit_append(sid, n)
 
     # --------------------------------------------------------------- read
-    def gather(self, seq_id: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Contiguous (L, T, Hkv, Dh) device copies of a sequence."""
+    def gather(self, seq_id: int
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Contiguous (L, T, Hkv, Dh) device copies of a sequence (a
+        latent pool: (L, T, Dh) and None)."""
         e = self.sequences[seq_id]
         idx = self._index(e.page_ids)
-        L, H, D = self.num_layers, self.kv_heads, self.head_dim
-        k = self.k[:, idx].reshape(L, -1, H, D)
-        v = self.v[:, idx].reshape(L, -1, H, D)
+        L = self.num_layers
+        k = self.k[:, idx].reshape(L, -1, *self._row)
+        if self.v is None:
+            return k[:, :e.length], None
+        v = self.v[:, idx].reshape(L, -1, *self._row)
         return k[:, :e.length], v[:, :e.length]
 
     def page_table(self, seq_id: int) -> List[int]:
@@ -284,6 +304,9 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
                         ) -> Tuple[np.ndarray, np.ndarray]:
         """Contiguous (L, T, Hkv, Dh) f32 host copies of a sequence's first
         ``length`` tokens (default: all): the cross-worker wire format."""
+        if self.v is None:
+            raise NotImplementedError("a latent pool's sequences do not "
+                                      "migrate")
         e = self.sequences[seq_id]
         n = e.length if length is None else min(length, e.length)
         L, H, D = self.num_layers, self.kv_heads, self.head_dim
@@ -300,6 +323,9 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         """Adopt a migrated contiguous KV block as a new sequence (the
         inverse of :meth:`export_sequence`); raises MemoryError if the pool
         cannot hold it."""
+        if self.v is None:
+            raise NotImplementedError("a latent pool's sequences do not "
+                                      "migrate")
         if k.shape != v.shape or k.shape[0] != self.num_layers \
                 or tuple(k.shape[2:]) != (self.kv_heads, self.head_dim):
             raise ValueError(
@@ -319,5 +345,4 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         unless ``dtype_bytes`` is given."""
         if dtype_bytes is None:
             dtype_bytes = self.dtype.itemsize
-        return 2 * self.num_layers * self.num_pages * self.page_size \
-            * self.kv_heads * self.head_dim * dtype_bytes
+        return (1 if self.v is None else 2) * self.k.numel() * dtype_bytes

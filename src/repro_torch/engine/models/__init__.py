@@ -1,6 +1,9 @@
 """Model registry of the port: ``build_model(cfg)`` dispatches on
 ``cfg.family``.
 
+* a config with latent attention (``cfg.mla``, DeepSeek-V2) ->
+  ``MLATransformerLM`` (``mla.py``), the paged hooks below over a latent
+  pool (``paged_kv_layout()`` -> (layers, None, latent width)).
 * ``dense``, ``moe`` and ``vlm`` -> ``TransformerLM``.  It implements the
   paged-KV hooks the continuous-batching engine drives:
     paged_kv_layout() -> (layers, kv_heads, head_dim)
@@ -26,6 +29,9 @@ from repro_torch.configs.base import ModelConfig
 
 
 def build_model(cfg: ModelConfig, device="cuda"):
+    if cfg.mla is not None:
+        from repro_torch.engine.models.mla import MLATransformerLM
+        return MLATransformerLM(cfg, device=device)
     if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.engine.models.transformer import TransformerLM
         return TransformerLM(cfg, device=device)

@@ -94,9 +94,11 @@ class TransformerLM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = L.param(cfg.d_model, cfg.padded_vocab,
                                    dtype=self.dtype, device=device)
-        self.blocks = nn.ModuleList(
-            Block(cfg, self.head_dim, self.dtype, device, layer=i)
-            for i in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(self._new_block(i, device)
+                                    for i in range(cfg.num_layers))
+
+    def _new_block(self, layer: int, device) -> nn.Module:
+        return Block(self.cfg, self.head_dim, self.dtype, device, layer=layer)
 
     # ------------------------------------------------------------------ init
     @torch.no_grad()

@@ -133,6 +133,9 @@ def library() -> ctypes.CDLL:
             lib.linear_scan_bwd.restype = i
             lib.prefix_attention_fwd.argtypes = [p] * 13 + [i] * 8 + [p]
             lib.prefix_attention_fwd.restype = i
+            lib.latent_decode_attention_fwd.argtypes = \
+                [p] * 5 + [ctypes.c_float] + [i] * 4 + [p]
+            lib.latent_decode_attention_fwd.restype = i
             _lib = lib
         return _lib
 
