@@ -58,6 +58,14 @@ each:
    with no variant given, which must launch the table's variant only
    and give the greedy tokens of an engine pinned to another variant;
    every engine phase's paged launches must be the table's variant;
+   every engine run is profiled, and the paged kernels the card ran,
+   counted by name from the profiler's device events, must equal the
+   launches the counts credit (a replayed decode graph's are credited
+   as its capture counted them: the profiler shows they ran); then one
+   request served through the decode step's CUDA graphs and again with
+   the eager step, whose tokens must be equal and whose graphs' arm
+   must run one paged kernel a layer a step (``[engine.decode_graphs]``:
+   host ms a step of each, the graphs' counters and their memory pool);
 5. hybrid: full-width recurrentgemma-2b served through the engine's
    dense-row path (flash prefill at Dh=256, the RG-LRU scan, decode
    attention over the ring), its step profile and parity, batch
@@ -125,8 +133,9 @@ each:
    160) served through the engine (a shared prefix, cold prompts, a
    request admitted mid-decode) with the launch counts reset just
    before: one flash launch a layer a prefill call on the tensor cores,
-   one latent launch a layer a decode step, the model's counters, no
-   paged launch and no plain version;
+   one latent kernel a layer a decode step (counted by the profiler,
+   replayed graphs' included, and equal to the launches credited), the
+   model's counters, no paged launch and no plain version;
 12. distribution (``repro_torch.distribution``): the sharded decode at
    deepseek-67b's attention width (64 query and 8 KV heads of 128, bf16,
    B=8 over T=32768 slots), with and without a 4096-key window, over a
@@ -390,6 +399,34 @@ def graph_nodes(torch, fn):
     return [" ".join(dot[h.end():nxt].split())[:200]
             for h, nxt in zip(heads, [h.start() for h in heads[1:]]
                               + [len(dot)])]
+
+
+PAGED_KERNEL = "paged_split_kernel"
+LATENT_KERNEL = "latent_decode_kernel"
+
+
+def device_kernels(torch, fn):
+    """``fn()``'s result and the kernels the card ran meanwhile, by name:
+    the profiler's device events (CUPTI's, of every thread, and each
+    kernel of a replayed CUDA graph).  A launch count credits a replayed
+    graph with what its capture counted; this is what ran.  Raises where
+    the profiler reports no device event at all."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            names[e.name()] = names.get(e.name(), 0) + 1
+    assert names, "the profiler reported no device event"
+    return out, names
+
+
+def kernels_named(names, kernel: str) -> int:
+    """Device events of ``device_kernels`` whose name holds ``kernel``."""
+    return sum(n for k, n in names.items() if kernel in k)
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -1055,6 +1092,68 @@ def first_difference(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
+def graph_pool_bytes(torch, model):
+    """Bytes the card holds in the memory pool of the model's decode
+    graphs (its segments in the allocator's snapshot)."""
+    pool = model._graph_pool
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def engine_decode_graphs(torch, eng, prompt, max_new):
+    """One request served alone from a cold pool twice: through the
+    model's decode graphs (its key captured at its second step, replayed
+    after), then with the eager step in the dispatcher's place.  The
+    tokens must be equal, the first run's steps replayed, and the card
+    must run one paged kernel a layer a step in it (the profiler's
+    count).  Logs each run's host ms a step (the engine's whole step,
+    sampling and its sync included) and the graphs' counters and pool."""
+    model = eng.model
+    runs = {}
+    for arm in ("graphs", "eager"):
+        eng.release_warm()
+        if arm == "eager":
+            model.paged_decode_step = model._paged_decode_step_eager
+        c0 = model.counters()
+        step_s, _, undo = time_engine(eng)
+        def serve():
+            out = eng.generate([prompt], max_new_tokens=max_new)[0]
+            eng.drain()         # the last step's timer appends after
+            return out
+
+        try:
+            out, ran = device_kernels(torch, serve)
+        finally:
+            undo()
+            if arm == "eager":
+                del model.paged_decode_step
+        c1 = model.counters()
+        runs[arm] = (out, step_s, {k: c1[k] - c0[k] for k in c1},
+                     kernels_named(ran, PAGED_KERNEL))
+    (got, g_s, moved, g_ran), (want, e_s, still, e_ran) = \
+        runs["graphs"], runs["eager"]
+    assert got == want, ("the replayed steps' tokens differ from the "
+                         f"eager step's at {first_difference(got, want)}")
+    assert moved["decode_graph_replays"] >= len(g_s) - 2, moved
+    layers = model.cfg.num_layers
+    assert g_ran == layers * len(g_s) and e_ran == layers * len(e_s), \
+        (g_ran, len(g_s), e_ran, len(e_s))
+    assert still["decode_graph_replays"] == 0 \
+        and still["decode_graph_captures"] == 0, still
+    log("engine.decode_graphs", request_tokens=len(prompt),
+        tokens_each=max_new, tokens="equal", decode_steps=len(g_s),
+        replays=moved["decode_graph_replays"],
+        captures=moved["decode_graph_captures"],
+        capture_s=f"{moved['decode_graph_capture_s']:.3f}",
+        paged_kernels_ran=g_ran,
+        graphs_step_ms=f"{1e3 * sorted(g_s)[len(g_s) // 2]:.3f}",
+        eager_step_ms=f"{1e3 * sorted(e_s)[len(e_s) // 2]:.3f}",
+        graphs_held=len(model._graphs),
+        graph_pool_mib=f"{graph_pool_bytes(torch, model) / 2**20:.1f}")
+
+
 def engine_dense_view(torch, np, eng, prompts, outs, max_new, da_ops,
                       pd_ops, InferenceEngine):
     """qwen3-1.7b on the engine's dense-view arm (``paged_decode=False``):
@@ -1490,10 +1589,12 @@ def processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
         ckpt = f"{tmp}/batch.json"
         for m in mods:
             m.reset_counts()
-        rep, wall_s, times = timed_run(hosts, checkpoint_path=ckpt)
+        (rep, wall_s, times), ran = device_kernels(
+            torch, lambda: timed_run(hosts, checkpoint_path=ckpt))
         launches = {"flash_attention": fa_ops.launches,
                     "flash_tensor_core": fa_ops.tensor_core_launches,
                     "paged_decode_attention": pd_ops.launches,
+                    "paged_ran": kernels_named(ran, PAGED_KERNEL),
                     "paged_split": pd_ops.split_launches,
                     **paged_variant_counts(pd_ops),
                     "decode_attention": da_ops.launches,
@@ -1508,6 +1609,8 @@ def processor_phases(torch, fa_ops, pd_ops, da_ops, sp_ops, lru_ops,
         assert x["model_switches"] >= 1, "no model switch"
         assert launches["flash_attention"] > 0 \
             and launches["paged_decode_attention"] > 0, launches
+        assert launches["paged_ran"] == launches["paged_decode_attention"], \
+            f"the card ran other paged kernels than counted: {launches}"
         assert launches["flash_tensor_core"] == launches["flash_attention"], \
             "a bf16 flash launch missed the tensor cores"
         # a call splits its rows' pages across blocks when its table
@@ -2095,19 +2198,22 @@ def serve_checked(torch, eng, prompts, max_new, requests, fa_ops, pd_ops,
     bf16 flash launch on the tensor cores, every paged launch in the variant
     the paged kernel's table names for the engine (``table_config``) or its
     ``kernel_variant``, a split paged launch where a table passed one
-    chunk, and no plain version.  Returns (outputs,
+    chunk, and no plain version.  The run is profiled: the paged kernels
+    the card ran (``device_kernels``) must be as many as the counts
+    credit, replayed decode graphs' included.  Returns (outputs,
     launches, step seconds, admission seconds, run seconds)."""
     step_s, admit_s, undo = time_engine(eng, kinds=kinds)
     n_plain = plain_calls["n"]
     fa_ops.reset_counts()
     pd_ops.reset_counts()
     t_run = time.perf_counter()
-    outs = serve_requests(eng, prompts, max_new, *requests, extras=extras)
-    torch.cuda.synchronize()
+    outs, ran = device_kernels(torch, lambda: serve_requests(
+        eng, prompts, max_new, *requests, extras=extras))
     run_s = time.perf_counter() - t_run
     launches = {"flash_attention": fa_ops.launches,
                 "flash_tensor_core": fa_ops.tensor_core_launches,
                 "paged_decode_attention": pd_ops.launches,
+                "paged_ran": kernels_named(ran, PAGED_KERNEL),
                 "paged_split": pd_ops.split_launches,
                 **paged_variant_counts(pd_ops),
                 "plain_calls": plain_calls["n"] - n_plain}
@@ -2116,6 +2222,8 @@ def serve_checked(torch, eng, prompts, max_new, requests, fa_ops, pd_ops,
     assert all(len(o) == max_new for o in outs.values()), "short output"
     assert launches["flash_attention"] > 0 \
         and launches["paged_decode_attention"] > 0, launches
+    assert launches["paged_ran"] == launches["paged_decode_attention"], \
+        f"the card ran other paged kernels than the counts credit: {launches}"
     assert launches["flash_tensor_core"] == launches["flash_attention"], \
         "a bf16 flash launch missed the tensor cores"
     want = eng.kernel_variant or table_config(pd_ops, eng)["variant"]
@@ -2307,7 +2415,8 @@ def live_step_parity(torch, np, eng, models, n_extras, serve):
 def profile_engine(torch, np, eng, prompt, max_new, shapes=None):
     """Where a call's time goes, under the profiler: a few decode steps
     over the engine's warm rows (at most 8, padded to 8 as the engine
-    pads) and two cold chunk prefills of ``prompt`` (padded to the
+    pads; replays of the step's CUDA graph, captured before) and two
+    cold chunk prefills of ``prompt`` (padded to the
     engine's bucket).  {call: (wall ms, device-busy ms, top kernels)}; the
     two steps' shapes go into ``shapes`` where given: {"decode": (B, table
     pages, page size, pool dtype, lengths), "prefill": (S, T)}."""
@@ -2322,6 +2431,10 @@ def profile_engine(torch, np, eng, prompt, max_new, shapes=None):
 
     def decode_step():
         eng.model.paged_decode_step(tok, eng.kv.k, eng.kv.v, pt, lens)
+
+    # the step's graph captured before the profiled calls (a call of a
+    # new key runs eagerly, the next one captures)
+    decode_step()
 
     def prefill_chunk():
         eng.model.prefill_with_cache(chunk, eng._chunk_view(T),
@@ -3731,19 +3844,21 @@ def mla_phases(torch, np, tokenizer, InferenceEngine, fa_ops, pd_ops,
         ops.reset_counts()
     before = eng.stats.as_dict()
     t_run = time.perf_counter()
-    outs = serve_requests(eng, prompts, max_new,
-                          ("share_a", "cold_c", "cold_d"), ("share_b",))
-    torch.cuda.synchronize()
+    outs, ran = device_kernels(torch, lambda: serve_requests(
+        eng, prompts, max_new, ("share_a", "cold_c", "cold_d"),
+        ("share_b",)))
     run_s = time.perf_counter() - t_run
     launches = {"flash_attention": fa_ops.launches,
                 "flash_tensor_core": fa_ops.tensor_core_launches,
                 "latent_decode_attention": ld_ops.launches,
+                "latent_ran": kernels_named(ran, LATENT_KERNEL),
                 "paged_decode_attention": pd_ops.launches,
                 "plain_calls": plain_calls["n"] - n_plain}
     after = eng.stats.as_dict()
     probes = {k: after[k] - before[k] for k in
               ("expert_slots_held", "moe_layer_calls",
-               "latent_decode_launches")}
+               "latent_decode_launches", "decode_graph_replays",
+               "decode_graph_captures")}
     assert all(len(o) == max_new for o in outs.values()), "short output"
     assert after["prefix_hits"] >= 1, after
     assert calls["prefill"] > 0 and calls["decode"] > 0, calls
@@ -3751,13 +3866,14 @@ def mla_phases(torch, np, tokenizer, InferenceEngine, fa_ops, pd_ops,
         (launches, calls)
     assert launches["flash_tensor_core"] == launches["flash_attention"], \
         "a bf16 flash launch missed the tensor cores"
-    assert launches["latent_decode_attention"] == \
-        n_layers * calls["decode"], (launches, calls)
+    assert launches["latent_ran"] == n_layers * calls["decode"] \
+        == launches["latent_decode_attention"], (launches, calls)
     assert probes["latent_decode_launches"] == \
         launches["latent_decode_attention"], probes
     assert probes["moe_layer_calls"] == \
         n_moe * (calls["prefill"] + calls["decode"]), (probes, calls)
-    assert launches["paged_decode_attention"] == 0, launches
+    assert launches["paged_decode_attention"] == 0 \
+        and kernels_named(ran, PAGED_KERNEL) == 0, launches
     assert launches["plain_calls"] == 0, \
         "a plain version ran on the CUDA path"
     log("mla.run", model=f"{cfg.name}(full width, {n_layers} of 60 layers, "
@@ -3771,10 +3887,13 @@ def mla_phases(torch, np, tokenizer, InferenceEngine, fa_ops, pd_ops,
         flash_launches=launches["flash_attention"],
         flash_tensor_core_launches=launches["flash_tensor_core"],
         latent_launches=launches["latent_decode_attention"],
+        latent_kernels_ran=launches["latent_ran"],
         paged_launches=launches["paged_decode_attention"],
         plain_calls=launches["plain_calls"],
         expert_slots_held=probes["expert_slots_held"],
-        moe_layer_calls=probes["moe_layer_calls"])
+        moe_layer_calls=probes["moe_layer_calls"],
+        decode_graph_replays=probes["decode_graph_replays"],
+        decode_graph_captures=probes["decode_graph_captures"])
     free_engine(torch, eng)
     return launches
 
@@ -4915,9 +5034,15 @@ def paged_table_phase(torch, eng, prompts, pd_ops, smi, InferenceEngine):
         e = InferenceEngine(eng.cfg, seed=0, kernel_variant=arm)
         e.load(eng.model.state_dict())
         pd_ops.reset_counts()
-        out = e.generate(toks, max_new_tokens=PAGED_TABLE_NEW)
-        e.drain()
+        def serve():
+            out = e.generate(toks, max_new_tokens=PAGED_TABLE_NEW)
+            e.drain()
+            return out
+
+        out, ran = device_kernels(torch, serve)
         runs[arm] = (out, dict(pd_ops.variant_launches))
+        assert kernels_named(ran, PAGED_KERNEL) == pd_ops.launches, \
+            (arm, kernels_named(ran, PAGED_KERNEL), pd_ops.launches)
         free_engine(torch, e)
     (table_out, table_n), (other_out, other_n) = runs[None], runs[other]
     assert sum(table_n.values()) > 0 \
@@ -5335,6 +5460,10 @@ def main() -> int:
             device_busy_ms_per_call=f"{busy_ms:.3f}",
             device_busy_share=f"{busy_ms / wall_ms:.3f}",
             top_kernels_ms_per_call=json.dumps(top))
+
+    # the decode step's graphs against the eager step, one request (the
+    # engine's warm rows are released)
+    engine_decode_graphs(torch, eng, prompts["cold_c"], max_new)
 
     # batch invariance: the request decoded first in a batch of up to six
     # rows, decoded again alone (cold prefill, batch of one); on the

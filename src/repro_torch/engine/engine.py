@@ -323,7 +323,10 @@ class InferenceEngine:
             else:
                 self.model.load_state_dict(state_dict)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            # the stream the weights were made on, not the whole device:
+            # another engine's loop may be capturing a decode graph, and a
+            # device-wide sync is refused while a stream captures
+            torch.cuda.current_stream(self.device).synchronize()
         dt = time.perf_counter() - t0
         self._loaded = True
         self.stats.model_loads += 1

@@ -29,11 +29,13 @@ place of K and V (``kvcache.PagedKVCache``).
   ``1/sqrt(256)`` leaves ``s``.  The padding costs 256/192 = 1.33 times
   the score work and 2 times the value work of a kernel at the true
   widths.
-* Decode (``paged_decode_step``) takes the absorbed form: ``q~ = W_UK^T
-  q_nope`` per head, joined with ``q_rope`` into one query of the
-  latent's width, attends over the latent pages in the hand-written
-  kernel (``kernels/latent_decode_attention``; the token's latent is
-  scattered into its page first, with no host sync), whose output is the
+* Decode (``paged_decode_step``, which replays CUDA graphs of
+  ``_paged_decode_step_eager`` as ``TransformerLM``'s does) takes the
+  absorbed form: ``q~ = W_UK^T q_nope`` per head, joined with
+  ``q_rope`` into one query of the latent's width, attends over the
+  latent pages in the hand-written kernel
+  (``kernels/latent_decode_attention``; the token's latent is scattered
+  into its page first, with no host sync), whose output is the
   probability-weighted ``c_kv``; ``o = W_UV`` of that per head, then
   ``W_O``.
 
@@ -152,11 +154,13 @@ class MLATransformerLM(TransformerLM):
     ``TransformerLM``'s embedding, final norm and head, ``MLABlock``s, and
     the paged engine's hooks over a latent pool.
 
-    ``counters()`` gives what the expert layer did since construction:
+    ``counters()`` gives, besides the decode graphs' counts
+    (``TransformerLM``), what the expert layer did since construction:
     ``expert_slots_held`` (token-expert slots the held experts computed,
     summed on the device and read only when asked), ``moe_layer_calls``
-    (expert-layer calls, counted on the host) and the latent kernel's
-    launches (``latent_decode_launches``, ``ld_ops.launches``)."""
+    (expert-layer calls, counted on the host, and at each replay of a
+    captured decode step as many as its capture counted) and the latent
+    kernel's launches (``latent_decode_launches``, ``ld_ops.launches``)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if cfg.mla is None or cfg.moe is None or cfg.routing is None:
@@ -236,9 +240,21 @@ class MLATransformerLM(TransformerLM):
 
     def counters(self) -> Dict[str, float]:
         slots = 0 if self._slots is None else int(self._slots.item())
-        return {"expert_slots_held": slots,
+        return {**super().counters(), "expert_slots_held": slots,
                 "moe_layer_calls": self.moe_layer_calls,
                 "latent_decode_launches": ld_ops.launches}
+
+    def _host_counts(self) -> Dict[str, int]:
+        """Besides the kernels' launches: the expert-layer calls.
+        ``expert_slots_held`` is summed on the device, inside the
+        graph."""
+        return {**super()._host_counts(),
+                "moe_layer_calls": self.moe_layer_calls}
+
+    def _add_host_counts(self, moved: Dict[str, int]) -> None:
+        moved = dict(moved)
+        self.moe_layer_calls += moved.pop("moe_layer_calls")
+        super()._add_host_counts(moved)
 
     # ------------------------------------------------------ not served here
     def _unsupported(self, what: str):
@@ -339,13 +355,15 @@ class MLATransformerLM(TransformerLM):
 
     # --------------------------------------------------------------- decode
     @torch.no_grad()
-    def paged_decode_step(self, token: torch.Tensor, k_pages: torch.Tensor,
-                          v_pages: Optional[torch.Tensor],
-                          page_table: torch.Tensor, lengths: torch.Tensor,
-                          impl: Optional[str] = None,
-                          variant: Optional[str] = None,
-                          pages_per_block: Optional[int] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor, None]:
+    def _paged_decode_step_eager(self, token: torch.Tensor,
+                                 k_pages: torch.Tensor,
+                                 v_pages: Optional[torch.Tensor],
+                                 page_table: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 impl: Optional[str] = None,
+                                 variant: Optional[str] = None,
+                                 pages_per_block: Optional[int] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, None]:
         """One autoregressive step over the latent pool ``k_pages`` (L, P,
         page, kv_lora + dr); ``v_pages`` is None (a latent pool has no V),
         ``variant`` and ``pages_per_block`` are the GQA kernel's and

@@ -30,10 +30,24 @@ keeps the graph and holds no KV.  Unlike the JAX functions,
 KV into the cache or pool they are given IN PLACE, which saves the
 whole-pool copy an immutable update would cost (about 1.9 GB at full
 width).
+
+On the card ``paged_decode_step`` replays CUDA graphs: the step's
+launches, captured once per batch, table width, kernel variant and pool
+(``_StepGraph``), go to the card in one graph launch instead of one
+Python call each, which bounded a step's time at full width.  The first
+call of such a key runs eagerly (``_paged_decode_step_eager``), the
+second captures it, every later one copies its inputs into the graph's
+and replays it; a model keeps the graphs of its ``_GRAPH_KEYS`` keys
+used last.  Elsewhere (the CPU, meta tensors, ``impl="torch"``, grad
+on, a stream already capturing) the eager step runs as it is.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.models import layers as L
 from repro_torch.engine.models import moe as M
+from repro_torch.kernels import common as KC
 from repro_torch.kernels.paged_decode_attention import ops as pd_ops
 
 Cache = Dict[str, torch.Tensor]
@@ -75,10 +90,57 @@ class Block(nn.Module):
                                  "w_down": (d_ff, d)}, dtype, device)
 
 
+@dataclass
+class _StepGraph:
+    """One captured paged decode step: its static inputs, which a replay
+    overwrites with the caller's, the logits buffer it writes (shared by
+    every graph of its batch size), its replay, and how far the host
+    counts moved while the step's Python ran at capture
+    (``_host_counts``), added at each replay."""
+    token: torch.Tensor
+    page_table: torch.Tensor
+    lengths: torch.Tensor
+    logits: torch.Tensor
+    replay: Optional[Callable[[], None]] = None
+    moved: Optional[Dict[str, int]] = None
+
+
+# one capture at a time in the process (each engine's loop thread
+# captures its own model's steps)
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _moved(before: Dict[str, int], after: Dict[str, int]
+           ) -> Dict[str, int]:
+    return {k: n - before.get(k, 0) for k, n in after.items()}
+
+
+def _keep(cache: OrderedDict, key, value, limit: int) -> None:
+    """Put ``key`` last in ``cache`` and drop the least recent keys past
+    ``limit``."""
+    cache[key] = value
+    cache.move_to_end(key)
+    while len(cache) > limit:
+        cache.popitem(last=False)
+
+
 class TransformerLM(nn.Module):
     """The dense or MoE decoder; its weights live on ``device`` (the card
     unless the caller asks for the CPU, or "meta" until the engine
-    loads)."""
+    loads).
+
+    ``counters()`` gives what the decode step's CUDA graphs did since
+    construction: ``decode_graph_replays``, ``decode_graph_captures`` and
+    ``decode_graph_capture_s`` (host seconds of the captures: the step's
+    Python under capture and the graph's instantiation)."""
+
+    # the call of a decode key that captures its graph: the first runs
+    # eagerly, so a shape seen once pays no capture
+    _GRAPH_CALL = 2
+    # decode keys a model remembers, graphs and calls each, least recent
+    # dropped first: traffic of ever new table widths keeps a few graphs,
+    # and a key not seen again within that many others is never captured
+    _GRAPH_KEYS = 8
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -96,6 +158,10 @@ class TransformerLM(nn.Module):
                                    dtype=self.dtype, device=device)
         self.blocks = nn.ModuleList(self._new_block(i, device)
                                     for i in range(cfg.num_layers))
+        self._drop_graphs()
+        self.decode_graph_replays = 0
+        self.decode_graph_captures = 0
+        self.decode_graph_capture_s = 0.0
 
     def _new_block(self, layer: int, device) -> nn.Module:
         return Block(self.cfg, self.head_dim, self.dtype, device, layer=layer)
@@ -382,14 +448,191 @@ class TransformerLM(nn.Module):
         return cache["k"][:, rows, ix], cache["v"][:, rows, ix]
 
     # ----------------------------------------------------- paged decode step
-    @torch.no_grad()
     def paged_decode_step(self, token: torch.Tensor, k_pages: torch.Tensor,
-                          v_pages: torch.Tensor, page_table: torch.Tensor,
-                          lengths: torch.Tensor, impl: Optional[str] = None,
+                          v_pages: Optional[torch.Tensor],
+                          page_table: torch.Tensor, lengths: torch.Tensor,
+                          impl: Optional[str] = None,
                           variant: Optional[str] = None,
                           pages_per_block: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
+                                     Optional[torch.Tensor]]:
+        """One autoregressive step over the page pool: the eager step
+        (``_paged_decode_step_eager``, which states the arguments), or on
+        the card its CUDA graph.
+
+        A graph is keyed by ``(B, n_pages, variant, pages_per_block)`` and
+        the pools' addresses.  A key's first call runs eagerly, its
+        second (``_GRAPH_CALL``) captures it, and each later call copies
+        ``token``, ``page_table`` and ``lengths`` into the graph's own
+        buffers and replays it, with the host counts a step advances
+        (the kernels' launches) moved as the captured step moved them.
+        The graphs and the calls of the ``_GRAPH_KEYS`` keys used last
+        are kept, each least recent first out.  Graphs are used only
+        where ``_graphs_apply`` holds, and a key whose capture finds no
+        memory stays eager (``_capture_step``).  A replayed step returns
+        the logits buffer that every graph of its batch size writes:
+        valid until the next decode step.  The pools returned are the
+        tensors passed in."""
+        if not self._graphs_apply(token, impl):
+            return self._paged_decode_step_eager(
+                token, k_pages, v_pages, page_table, lengths, impl=impl,
+                variant=variant, pages_per_block=pages_per_block)
+        key = (token.shape[0], page_table.shape[1], variant,
+               pages_per_block, k_pages.data_ptr(), tuple(k_pages.shape),
+               None if v_pages is None else v_pages.data_ptr())
+        g = self._graphs.get(key)
+        if g is None:
+            n = self._graph_calls.get(key, 0) + 1
+            _keep(self._graph_calls, key, n, self._GRAPH_KEYS)
+            if n == self._GRAPH_CALL:
+                g = self._capture_step(token, k_pages, v_pages, page_table,
+                                       lengths, impl, variant,
+                                       pages_per_block)
+            if g is None:
+                return self._paged_decode_step_eager(
+                    token, k_pages, v_pages, page_table, lengths,
+                    impl=impl, variant=variant,
+                    pages_per_block=pages_per_block)
+            del self._graph_calls[key]
+            _keep(self._graphs, key, g, self._GRAPH_KEYS)
+        else:
+            self._graphs.move_to_end(key)
+            g.token.copy_(token)
+            g.page_table.copy_(page_table)
+            g.lengths.copy_(lengths)
+            self._add_host_counts(g.moved)
+            self.decode_graph_replays += 1
+        g.replay()
+        return g.logits, k_pages, v_pages
+
+    def _graphs_apply(self, token: torch.Tensor, impl: Optional[str]
+                      ) -> bool:
+        """Whether a decode step may run as a CUDA graph: its tensors on
+        the card under the ``"cuda"`` kernels, grad off and the stream
+        not capturing already.  Every family's step qualifies: none reads
+        the device back on the host, and each one's shapes follow its
+        inputs' alone (the MoE capacity is computed from the shapes)."""
+        return (token.device.type == "cuda"
+                and (impl or self.cfg.attention_impl) == "cuda"
+                and not torch.is_grad_enabled()
+                and not torch.cuda.is_current_stream_capturing())
+
+    def _capture_step(self, token, k_pages, v_pages, page_table, lengths,
+                      impl, variant, pages_per_block
+                      ) -> Optional[_StepGraph]:
+        """Capture the eager step over static copies of the inputs
+        (``_record``), with its logits copied into the batch size's
+        buffer, and note how far the host counts moved meanwhile.  The
+        graphs' pool cannot take the blocks the eager steps and prefills
+        left cached: where the capture runs out of memory, they are given
+        back to the device (``empty_cache``) and it runs once more, and
+        where that runs out too the key stays eager (None).  One capture
+        at a time in the process, so no other thread captures while the
+        cache is emptied."""
+        t0 = time.perf_counter()
+        head = self._head()
+        B = token.shape[0]
+        logits = self._graph_logits.get(B)
+        if logits is None:
+            logits = self._graph_logits[B] = torch.empty(
+                (B, head.shape[-1]), dtype=head.dtype, device=token.device)
+        g = _StepGraph(
+            *(t.clone(memory_format=torch.contiguous_format)
+              for t in (token, page_table, lengths)), logits)
+
+        def step():
+            out = self._paged_decode_step_eager(
+                g.token, k_pages, v_pages, g.page_table, g.lengths,
+                impl=impl, variant=variant, pages_per_block=pages_per_block)
+            g.logits.copy_(out[0])
+
+        before = self._host_counts()
+        for attempt in range(2):
+            try:
+                with _CAPTURE_LOCK:
+                    if attempt:
+                        torch.cuda.empty_cache()
+                    g.replay = self._record(step)
+                break
+            except torch.OutOfMemoryError:
+                # the aborted capture counted part of a step: take it back
+                self._add_host_counts(
+                    {k: -n for k, n in
+                     _moved(before, self._host_counts()).items()})
+                if not self._graphs:
+                    # no graph holds the pool any more, and the allocator
+                    # shares only a pool in use: the next capture takes a
+                    # new one
+                    self._graph_pool = None
+        else:
+            return None
+        g.moved = _moved(before, self._host_counts())
+        self.decode_graph_captures += 1
+        self.decode_graph_capture_s += time.perf_counter() - t0
+        return g
+
+    def _record(self, step: Callable[[], None]) -> Callable[[], None]:
+        """Capture ``step()`` into a CUDA graph on the model's side stream,
+        into the memory pool its graphs share (steps never overlap, and
+        each step's logits are read before the next step), and return the
+        graph's replay.  ``capture_begin`` directly: the
+        ``torch.cuda.graph`` context synchronizes and empties the cache
+        before each capture; ``thread_local``: the engine captures on its
+        loop thread while others run."""
+        dev = self.device
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(dev)
+        side = self._graph_stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=self._graph_pool,
+                                capture_error_mode="thread_local")
+            try:
+                step()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return graph.replay
+
+    def _drop_graphs(self) -> None:
+        self._graphs: OrderedDict[tuple, _StepGraph] = OrderedDict()
+        self._graph_calls: OrderedDict[tuple, int] = OrderedDict()
+        self._graph_logits: Dict[int, torch.Tensor] = {}
+        self._graph_pool = None
+        self._graph_stream = None
+
+    def _apply(self, fn, recurse=True):
+        # the graphs hold the weights' addresses: moving or re-making the
+        # weights (``to``, ``to_empty``) drops them
+        self._drop_graphs()
+        return super()._apply(fn, recurse)
+
+    def _host_counts(self) -> Dict[str, int]:
+        """The host counts the step's Python advances: this thread's
+        kernel launches (``common.thread_launches``)."""
+        return KC.thread_launches()
+
+    def _add_host_counts(self, moved: Dict[str, int]) -> None:
+        KC.add_launches(moved)
+
+    def counters(self) -> Dict[str, float]:
+        return {"decode_graph_replays": self.decode_graph_replays,
+                "decode_graph_captures": self.decode_graph_captures,
+                "decode_graph_capture_s": self.decode_graph_capture_s}
+
+    @torch.no_grad()
+    def _paged_decode_step_eager(self, token: torch.Tensor,
+                                 k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 impl: Optional[str] = None,
+                                 variant: Optional[str] = None,
+                                 pages_per_block: Optional[int] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
         """One autoregressive step straight over the page pool.
 
         token: (B,) int; k_pages/v_pages: the pool, (L, P, page, Hkv, Dh);

@@ -12,11 +12,15 @@ and a zero output row, so a log-sum-exp combine treats it as empty.
 ``sm_count`` is the card's SM count, which the split kernels' wrappers
 plan their grids by, read once per device; ``launch_on`` hands a launch
 the device's current stream; ``refuse_grad`` keeps a kernel without a
-backward from dropping a gradient.
+backward from dropping a gradient; ``LaunchCounts`` keeps a wrapper's
+launch counts, and ``thread_launches`` and ``add_launches`` read and
+credit the calling thread's over every kernel that keeps them.
 """
 from __future__ import annotations
 
 import functools
+import threading
+from typing import Dict, Iterable
 
 import torch
 
@@ -93,3 +97,58 @@ def refuse_grad(what: str, *tensors) -> None:
         raise RuntimeError(f"{what}: the CUDA kernel has no backward, and an "
                            f"input requires grad; call it under "
                            f"torch.no_grad()")
+
+
+class LaunchCounts:
+    """One kernel's launch counts by key: over every thread since the last
+    ``reset`` (``totals``), and each thread's own since it started.  The
+    engines' loop threads launch concurrently, so every update of the
+    totals holds the lock; a decode step captured into a CUDA graph reads
+    its own thread's counts (``thread_launches``), whatever other threads
+    launch meanwhile.  ``kernel`` names the counts in those flat dicts."""
+
+    kept: Dict[str, "LaunchCounts"] = {}
+
+    def __init__(self, kernel: str, keys: Iterable[str]):
+        self.kernel = kernel
+        self.totals = dict.fromkeys(keys, 0)
+        self.lock = threading.Lock()
+        self._mine = threading.local()
+        LaunchCounts.kept[kernel] = self
+
+    def add(self, **counts: int) -> None:
+        with self.lock:
+            for k, n in counts.items():
+                self.totals[k] += n
+        mine = self.mine()
+        for k, n in counts.items():
+            mine[k] += n
+
+    def reset(self) -> None:
+        with self.lock:
+            self.totals.update(dict.fromkeys(self.totals, 0))
+
+    def mine(self) -> Dict[str, int]:
+        """The calling thread's counts since it started (live)."""
+        if not hasattr(self._mine, "n"):
+            self._mine.n = dict.fromkeys(self.totals, 0)
+        return self._mine.n
+
+
+def thread_launches() -> Dict[str, int]:
+    """The calling thread's launches since it started, of every kernel
+    that keeps ``LaunchCounts``: ``{"<kernel>.<key>": n}``."""
+    return {f"{c.kernel}.{k}": n for c in LaunchCounts.kept.values()
+            for k, n in c.mine().items()}
+
+
+def add_launches(moved: Dict[str, int]) -> None:
+    """Credit the calling thread, and the totals, with launches made
+    without calling the wrappers (a CUDA graph's replay), keyed as
+    ``thread_launches`` keys them."""
+    by_kernel: Dict[str, Dict[str, int]] = {}
+    for name, n in moved.items():
+        kernel, key = name.split(".", 1)
+        by_kernel.setdefault(kernel, {})[key] = n
+    for kernel, counts in by_kernel.items():
+        LaunchCounts.kept[kernel].add(**counts)

@@ -18,12 +18,10 @@ the probabilities are rounded to bfloat16 for the value product.
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import launch_on, refuse_grad
+from repro_torch.kernels.common import LaunchCounts, launch_on, refuse_grad
 from repro_torch.kernels.latent_decode_attention.ref import (
     latent_decode_attention_ref)
 
@@ -31,20 +29,24 @@ LATENT_DIM = 576
 V_DIM = 512
 HEADS_PER_BLOCK = 32
 
-launches = 0
-_count_lock = threading.Lock()
+# launches since the last reset (CPU calls are not counted), and each
+# thread's own (``common.thread_launches``)
+_counts = LaunchCounts("latent", ("launches",))
+
+
+def __getattr__(name: str):
+    # ``launches``: read from the counts
+    if name == "launches":
+        return _counts.totals["launches"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_counts() -> None:
-    global launches
-    with _count_lock:
-        launches = 0
+    _counts.reset()
 
 
 def _count() -> None:
-    global launches
-    with _count_lock:
-        launches += 1
+    _counts.add(launches=1)
 
 
 def _check(q, pool, page_table, lengths, v_dim):

@@ -35,14 +35,13 @@ from __future__ import annotations
 import functools
 import json
 import os
-import threading
 from typing import Optional
 
 import torch
 
 from repro_torch import cost_hooks
 from repro_torch.kernels import build
-from repro_torch.kernels.common import launch_on, refuse_grad
+from repro_torch.kernels.common import LaunchCounts, launch_on, refuse_grad
 from repro_torch.kernels.paged_decode_attention.ref import (
     fused_paged_decode_attention_ref, paged_decode_attention_ref)
 
@@ -64,30 +63,28 @@ _DEFAULT_TABLE = os.path.join(os.path.dirname(__file__), "autotune.json")
 # kernel launches since the last reset, all variants (CPU calls are not
 # counted), those of each variant (an attend-only call with stages of
 # more than one page counts as "blocked"), and those whose table held
-# more than one chunk (partials, merged by each row's last block)
-launches = 0
-variant_launches = dict.fromkeys(VARIANTS, 0)
-split_launches = 0
-# the engines' loop threads launch concurrently: every update of the
-# counts holds the lock, so none is lost
-_count_lock = threading.Lock()
+# more than one chunk (partials, merged by each row's last block); and
+# each thread's own (``common.thread_launches``)
+_counts = LaunchCounts("paged", ("launches", "split_launches") + VARIANTS)
+
+
+def __getattr__(name: str):
+    # ``launches``, ``split_launches`` and ``variant_launches`` ({variant:
+    # n}): read from the counts
+    if name in ("launches", "split_launches"):
+        return _counts.totals[name]
+    if name == "variant_launches":
+        return {v: _counts.totals[v] for v in VARIANTS}
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_counts() -> None:
-    global launches, split_launches
-    with _count_lock:
-        launches = split_launches = 0
-        variant_launches.update(dict.fromkeys(VARIANTS, 0))
+    _counts.reset()
 
 
 def _count(split: bool, variant: str) -> None:
     """Count one launch of ``variant``, and whether it was split."""
-    global launches, split_launches
-    with _count_lock:
-        launches += 1
-        variant_launches[variant] += 1
-        if split:
-            split_launches += 1
+    _counts.add(launches=1, split_launches=int(split), **{variant: 1})
 
 
 def shape_key(page_size: int, n_kv_heads: int, head_dim: int,

@@ -78,6 +78,13 @@ def test_concurrent_counts_are_exact(name):
     assert mod.launches == 0
 
 
+def _lock(mod):
+    """The lock a module's counts update under: its ``LaunchCounts``'
+    where it keeps one."""
+    counts = getattr(mod, "_counts", None)
+    return mod._count_lock if counts is None else counts.lock
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_count_updates_under_the_module_lock(name):
     """The update waits for the lock: CPython's interpreter lock alone
@@ -91,7 +98,7 @@ def test_count_updates_under_the_module_lock(name):
         mod._count(*args_of(0))
         done.set()
 
-    with mod._count_lock:
+    with _lock(mod):
         t = threading.Thread(target=count)
         t.start()
         assert not done.wait(timeout=0.2), "counted without the lock"

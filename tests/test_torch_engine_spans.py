@@ -222,9 +222,11 @@ def test_other_threads_record_nothing(served):
 
 
 def test_the_key_set_is_fixed_at_construction(served):
+    # the model's own counters (its decode graphs') are part of the set
     stats = served[3]
-    fresh = EngineStats().as_dict()
+    fresh = EngineStats(probes=served[0].model.counters).as_dict()
     assert list(stats) == list(fresh)
+    assert set(served[0].model.counters()) < set(fresh)
     assert all(isinstance(v, (int, float)) for v in fresh.values())
     spans = [k for k in fresh if k.startswith("span")]
     assert sorted(spans) == sorted(f"{kind}.{n}" for n in SPAN_NAMES
