@@ -2051,8 +2051,9 @@ def kernels_at_grouping(torch, F, rng, arch, H, Hkv):
         fused_eq_scatter_attend="bitwise",
         row_alone_vs_in_batch_of_8_wider_table="bitwise", **fmt(paged))
 
-    # the attend-only arms (kernel_variant="single"/"blocked") on the same
-    # inputs; the plain version is the gather-dense reference
+    # the attend-only arms (the variants "single" and "blocked" a table
+    # may name) on the same inputs; the plain version is the gather-dense
+    # reference
     arm_bound, arm_by = bound(attend_bytes, flops, "float32")
     arm_plain_ms = time_ms(torch, lambda: pd_plain(fused=False))
     arms = {}
@@ -2182,8 +2183,8 @@ def paged_variant_counts(pd_ops):
 
 def table_config(pd_ops, eng):
     """What the paged kernel's per-shape table names for an engine's pool
-    and head grouping: {"variant", "pages_per_block"}; the engine's
-    decode launches it where ``kernel_variant`` is None."""
+    and head grouping: {"variant", "pages_per_block"}, which the engine's
+    decode launches."""
     cfg = eng.cfg
     return pd_ops.kernel_config(eng.page_size, cfg.num_kv_heads,
                                 eng.model.head_dim,
@@ -2196,12 +2197,12 @@ def serve_checked(torch, eng, prompts, max_new, requests, fa_ops, pd_ops,
     served with the launch counts set to 0 just before and read just
     after.  Checks every output's length, the flash and paged launches, every
     bf16 flash launch on the tensor cores, every paged launch in the variant
-    the paged kernel's table names for the engine (``table_config``) or its
-    ``kernel_variant``, a split paged launch where a table passed one
-    chunk, and no plain version.  The run is profiled: the paged kernels
-    the card ran (``device_kernels``) must be as many as the counts
-    credit, replayed decode graphs' included.  Returns (outputs,
-    launches, step seconds, admission seconds, run seconds)."""
+    the paged kernel's table names for the engine (``table_config``), a
+    split paged launch where a table passed one chunk, and no plain
+    version.  The run is profiled: the paged kernels the card ran
+    (``device_kernels``) must be as many as the counts credit, replayed
+    decode graphs' included.  Returns (outputs, launches, step seconds,
+    admission seconds, run seconds)."""
     step_s, admit_s, undo = time_engine(eng, kinds=kinds)
     n_plain = plain_calls["n"]
     fa_ops.reset_counts()
@@ -2226,7 +2227,7 @@ def serve_checked(torch, eng, prompts, max_new, requests, fa_ops, pd_ops,
         f"the card ran other paged kernels than the counts credit: {launches}"
     assert launches["flash_tensor_core"] == launches["flash_attention"], \
         "a bf16 flash launch missed the tensor cores"
-    want = eng.kernel_variant or table_config(pd_ops, eng)["variant"]
+    want = table_config(pd_ops, eng)["variant"]
     assert launches[f"paged_{want}"] == launches["paged_decode_attention"], \
         f"the engine decoded through another variant than {want}"
     assert eng.stats.widest_decode_table > chunk \
@@ -4972,6 +4973,22 @@ PAGED_TABLE_NEW = 8
 PAGED_TABLE_SLACK = 1.25    # a winner re-timed slower than this x the best
 
 
+@contextlib.contextmanager
+def forced_variant(pd_ops, variant, pages_per_block):
+    """Inside the block the paged kernel's table is one whose default
+    names ``variant`` at ``pages_per_block``: the way to force a model's
+    decode step, which reads the table, to a variant."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "paged_table.json"
+        path.write_text(json.dumps({"configs": {"default": {
+            "variant": variant, "pages_per_block": pages_per_block}}}))
+        checked_in, pd_ops._DEFAULT_TABLE = pd_ops._DEFAULT_TABLE, str(path)
+        try:
+            yield
+        finally:
+            pd_ops._DEFAULT_TABLE = checked_in
+
+
 def paged_table_phase(torch, eng, prompts, pd_ops, smi, InferenceEngine):
     """[kernels.paged_table]: the paged kernel's checked-in table
     (``autotune.json``, the sweep's output, ``tune.py``), read as
@@ -4982,12 +4999,12 @@ def paged_table_phase(torch, eng, prompts, pd_ops, smi, InferenceEngine):
     distinct candidate of the sweep (``tune.candidates``) re-timed under
     the sweep's method, the winner no more than ``PAGED_TABLE_SLACK``
     times the best of them at its own key; then a qwen3 engine on
-    ``eng``'s weights with ``kernel_variant=None`` (the table) must
-    launch, counted from 0, the table's variant and nothing else, and
-    give the greedy tokens of an engine on the same weights pinned to
-    another variant (``single``, or ``fused`` where the table names
-    ``single``): the variants are bitwise equal.  Each engine is freed
-    before the next."""
+    ``eng``'s weights under the checked-in table must launch, counted
+    from 0, the table's variant and nothing else, and give the greedy
+    tokens of an engine on the same weights under a table forced to
+    another variant (``forced_variant``: ``single``, or ``fused`` where
+    the table names ``single``): the variants are bitwise equal.  Each
+    engine is freed before the next."""
     from repro_torch.kernels.paged_decode_attention import tune
     t0 = time.perf_counter()
     table = pd_ops.table()
@@ -5031,19 +5048,22 @@ def paged_table_phase(torch, eng, prompts, pd_ops, smi, InferenceEngine):
     toks = [prompts[n] for n in PAGED_TABLE_PROMPTS]
     runs = {}
     for arm in (None, other):
-        e = InferenceEngine(eng.cfg, seed=0, kernel_variant=arm)
-        e.load(eng.model.state_dict())
-        pd_ops.reset_counts()
-        def serve():
-            out = e.generate(toks, max_new_tokens=PAGED_TABLE_NEW)
-            e.drain()
-            return out
+        with (forced_variant(pd_ops, arm, want["pages_per_block"]) if arm
+              else contextlib.nullcontext()):
+            e = InferenceEngine(eng.cfg, seed=0)
+            e.load(eng.model.state_dict())
+            pd_ops.reset_counts()
 
-        out, ran = device_kernels(torch, serve)
-        runs[arm] = (out, dict(pd_ops.variant_launches))
-        assert kernels_named(ran, PAGED_KERNEL) == pd_ops.launches, \
-            (arm, kernels_named(ran, PAGED_KERNEL), pd_ops.launches)
-        free_engine(torch, e)
+            def serve():
+                out = e.generate(toks, max_new_tokens=PAGED_TABLE_NEW)
+                e.drain()
+                return out
+
+            out, ran = device_kernels(torch, serve)
+            runs[arm] = (out, dict(pd_ops.variant_launches))
+            assert kernels_named(ran, PAGED_KERNEL) == pd_ops.launches, \
+                (arm, kernels_named(ran, PAGED_KERNEL), pd_ops.launches)
+            free_engine(torch, e)
     (table_out, table_n), (other_out, other_n) = runs[None], runs[other]
     assert sum(table_n.values()) > 0 \
         and table_n[want["variant"]] == sum(table_n.values()), \
@@ -5069,8 +5089,8 @@ def count_steps(torch, cfg, dec, pf, tr):
     tokens into a (1, T) view (``pf``), and the remat train step on (B,
     S) tokens (``tr``).  Needs no card.  Returns the counts and the
     paged layout (layers, KV heads, Dh).  The decode step takes the
-    variant the paged kernel's table names (no ``variant`` given): the
-    one the card's engine launches."""
+    variant the paged kernel's table names: the one the card's engine
+    launches."""
     from repro_torch.engine.models import build_model
     from repro_torch.launch.op_cost import analyze_ops
     from repro_torch.training import AdamWConfig, TrainerConfig

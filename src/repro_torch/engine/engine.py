@@ -11,9 +11,11 @@ transformers (the paged path):
 * the only KV store is the refcounted device-resident ``PagedKVCache``:
   prefill writes KV rows into pages on the device, and each decode step
   runs ``paged_decode_step`` straight over the pool (on the card: the
-  paged CUDA kernel, in the variant its per-shape table names).  Per
-  step the host uploads O(batch) ints (tokens, page tables, lengths) and
-  downloads O(batch) sampled ids in one sync;
+  paged kernel the model picks).  Per step the host uploads O(batch)
+  ints (tokens, page tables, lengths) and downloads O(batch) sampled ids
+  in one sync.  The engine does not know what a pool's planes hold: it
+  passes the model the pool's (K, V) pair and builds its dense views one
+  zero tensor a plane (``PagedKVCache.plane_rows``);
 * prompt prefixes found in the ``RadixPrefixTree`` are served by
   aliasing the donor's pages (copy-on-write guards partial pages) and
   chunk-prefilling only the unseen suffix;
@@ -52,7 +54,8 @@ Two more decode paths, as in the JAX engine:
 * the dense view (``paged_decode=False`` on a paged model), the JAX
   engine's A/B reference: rows are gathered from their pages into a
   dense view, ``decode_step`` runs over it, and each step's new K/V
-  (``decode_kv_taps``) is appended back to the pages.
+  (``decode_kv_taps``) is appended back to the pages.  It needs a pool
+  of a K and a V plane.
 
 Both decode one token over a dense cache, attention in the
 ``decode_attention`` kernel.  The engine runs on ``device`` ("cuda" by
@@ -73,7 +76,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.debugsync import named_condition, named_lock
-from repro_torch.engine.kvcache import PagedKVCache
+from repro_torch.engine.kvcache import PagedKVCache, kv_pair
 from repro_torch.engine.models import build_model
 from repro_torch.engine.prefix_tree import RadixPrefixTree
 from repro_torch.engine.sampling import batched_sample
@@ -237,7 +240,6 @@ class InferenceEngine:
                  num_pages: Optional[int] = None, max_seq_len: int = 512,
                  max_warm_sequences: int = 32, paged_decode: bool = True,
                  admission_window: float = 0.0,
-                 kernel_variant: Optional[str] = None,
                  device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -253,17 +255,14 @@ class InferenceEngine:
         self.page_size = page_size
         self.max_seq_len = max_seq_len
         self.max_warm_sequences = max_warm_sequences
-        # paged-kernel variant override (None = the kernel's per-shape
-        # table, model.paged_kernel); the A/B arms pin a variant
-        self.kernel_variant = kernel_variant
         # grace window (seconds): a fresh batch waits this long after the
         # LAST submission before admitting, so near-simultaneous arrivals
         # form one batch.  Applied only while the engine is idle.
         self.admission_window = admission_window
         self._loaded = False     # guarded-by: self._cv | engine-loop
         self.stats = EngineStats()
-        # a model's own counters (latent attention's expert layer), read
-        # with the engine's
+        # a model's own counters (its decode graphs', an expert layer's),
+        # read with the engine's
         self.stats.probes = getattr(self.model, "counters", None)
         # the loop thread's spans (runs-on: engine-loop only)
         self._span = self.stats.spans.span
@@ -272,19 +271,16 @@ class InferenceEngine:
         # decode straight over the pages, or (dense rows, and the
         # paged_decode=False reference arm) over a dense view
         self._use_paged = bool(self._paged_layout) and paged_decode
-        # a latent pool (no KV heads: latent attention) has no dense view
-        self._latent = bool(self._paged_layout) \
-            and self._paged_layout[1] is None
-        if self._latent and not paged_decode:
-            raise NotImplementedError(
-                f"{cfg.name}: a latent pool is decoded paged only "
-                f"(paged_decode=False has no dense view of it)")
-        # the paged kernel's (variant, pages_per_block), resolved once:
-        # kernel_variant, else the kernel's per-shape table at this pool
-        if self._use_paged:
-            kc = self.model.paged_kernel(page_size)
-            self._paged_kernel = (kernel_variant or kc["variant"],
-                                  kc["pages_per_block"])
+        if self._paged_layout:
+            # a token's row in each of the pool's planes, as the chunk
+            # and dense views hold it
+            self._plane_rows = PagedKVCache.plane_rows(
+                *self._paged_layout[1:])
+            if not paged_decode and len(self._plane_rows) != 2:
+                raise NotImplementedError(
+                    f"{cfg.name}: the dense view (paged_decode=False) "
+                    f"needs a K and a V plane; this model's pool holds "
+                    f"{len(self._plane_rows)}")
         # cold prompts of one pass share a chunk-prefill call only where a
         # row's result does not depend on the rows beside it
         self._batch_prefill = bool(self._paged_layout) \
@@ -970,24 +966,21 @@ class InferenceEngine:
         self._first_tokens([slot], logits)
 
     def _chunk_view(self, T1: int, prefix=None, rows: int = 1):
-        """An empty (or, for one row, prefix-filled) dense (rows, L, T1,
-        Hkv, Dh) view for the chunk prefill, in the model dtype, on the
-        device.  Made in the cache's (L, rows, ...) layout, so that
-        ``paged_cache_view``'s transpose copies nothing."""
-        layers, heads, dh = self._paged_layout
-        row = (dh,) if self._latent else (heads, dh)
-        k_rows = torch.zeros((layers, rows, T1) + row,
-                             dtype=self.model.dtype,
-                             device=self.device).transpose(0, 1)
-        v_rows = None if self._latent else torch.zeros_like(k_rows)
+        """An empty (or, for one row, filled with the (K, V) pair
+        ``prefix``) dense (rows, L, T1, *row) view a plane for the chunk
+        prefill, in the model dtype, on the device.  Made in the cache's
+        (L, rows, ...) layout, so that ``paged_cache_view``'s transpose
+        copies nothing."""
+        planes = [torch.zeros((self._paged_layout[0], rows, T1) + row,
+                              dtype=self.model.dtype,
+                              device=self.device).transpose(0, 1)
+                  for row in self._plane_rows]
         n = 0
         if prefix is not None:
-            kp, vp = prefix
-            n = kp.shape[1]
-            k_rows[0, :, :n] = kp
-            if vp is not None:
-                v_rows[0, :, :n] = vp
-        return self._cache_view(k_rows, v_rows, [n] * rows)
+            n = prefix[0].shape[1]
+            for plane, p in zip(planes, prefix):
+                plane[0, :, :n] = p
+        return self._cache_view(*kv_pair(planes), [n] * rows)
 
     def _pf_pad(self, n: int) -> int:
         q = self._PF_QUANTUM
@@ -1097,8 +1090,8 @@ class InferenceEngine:
         self.stats.prefill_rows += 1
         with self._span("engine.admit.pool"):
             rows = self.model.cache_kv_rows_dev(cache, 0, S)
-            kv.extend_sequence(seq, *(None if r is None else r[:, shared:]
-                                      for r in rows))
+            kv.extend_sequence(seq, *kv_pair(
+                [r[:, shared:] for r in rows[:len(self._plane_rows)]]))
         return logits
 
     # ---------------------------------------------------------------- decode
@@ -1127,17 +1120,16 @@ class InferenceEngine:
         self.stats.view_rebuilds += 1
         if self._paged_layout:
             t_view = self._round_t(max(s.length + s.remaining for s in slots))
-            layers, heads, dh = self._paged_layout
-            k_rows = torch.zeros((b_pad, layers, t_view, heads, dh),
-                                 dtype=self.model.dtype, device=self.device)
-            v_rows = torch.zeros_like(k_rows)
+            planes = [torch.zeros((b_pad, self._paged_layout[0], t_view)
+                                  + row, dtype=self.model.dtype,
+                                  device=self.device)
+                      for row in self._plane_rows]
             lengths = [0] * b_pad
             for i, s in enumerate(slots):
-                kr, vr = self.kv.gather(s.seq_id)
-                k_rows[i, :, :s.length] = kr
-                v_rows[i, :, :s.length] = vr
+                for plane, r in zip(planes, self.kv.gather(s.seq_id)):
+                    plane[i, :, :s.length] = r
                 lengths[i] = s.length
-            self._view = self._cache_view(k_rows, v_rows, lengths)
+            self._view = self._cache_view(*kv_pair(planes), lengths)
         else:
             rows = self._dense_rows() + [None] * (b_pad - len(slots))
             axes = self.model.cache_batch_axes(rows[0])
@@ -1228,9 +1220,7 @@ class InferenceEngine:
             t_lens = self._tokens(lens)
         with self._span("engine.decode.model"):
             logits, _, _ = self.model.paged_decode_step(
-                t_tokens, kv.k, kv.v, t_pt, t_lens,
-                variant=self._paged_kernel[0],
-                pages_per_block=self._paged_kernel[1])
+                t_tokens, kv.k, kv.v, t_pt, t_lens)
         kv.commit_appends([s.seq_id for s in slots])
         for s in slots:
             s.length += 1

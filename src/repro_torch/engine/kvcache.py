@@ -19,11 +19,15 @@ partial trailing page may be aliased too, in which case the first append
 by either sequence into a page with refcount > 1 copies it first
 (copy-on-write), so neither sequence can corrupt the other's tokens.
 
-A latent pool (``kv_heads`` None: DeepSeek-V2's multi-head latent
-attention) holds one tensor ``k`` of shape ``(num_layers, num_pages,
-page_size, head_dim)``, one latent a token a layer, and ``v`` is None:
-its bytes are ``head_dim x 4`` a token a layer, with refcounts, prefix
-aliasing and copy-on-write as above.  Its sequences do not migrate.
+The K and V tensors are the pool's two planes.  A pool built with
+``kv_heads`` None holds one plane, ``(num_layers, num_pages, page_size,
+head_dim)``, and ``v`` is None (DeepSeek-V2's latent attention: one
+latent a token a layer).  Every write, copy-on-write, read and byte
+count maps over the planes the pool holds (zipped with a caller's (K,
+V) pair, of which a one-plane pool never reads V); callers pass and
+get (K, V) pairs, V None where there is no second plane (``kv_pair``).
+Only the constructor and the (K, V) migration format ask how many
+planes there are.
 
 Host staging happens only at the migration boundary
 (``export_sequence``/``import_sequence``): contiguous f32 numpy
@@ -33,11 +37,18 @@ KV can move between a JAX engine and a torch engine.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def kv_pair(planes: Sequence[torch.Tensor]
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Per-plane tensors as the (K, V) pair that the models and the pool
+    take and give: V None where a pool holds one plane."""
+    return tuple(planes) + (None,) * (2 - len(planes))
 
 
 @dataclass
@@ -69,12 +80,11 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         self.head_dim = head_dim
         self.dtype = dtype
         self.device = torch.device(device)
-        # a token's row: (Hkv, Dh), or a latent's (Dh,)
-        self._row = (head_dim,) if kv_heads is None else (kv_heads, head_dim)
-        shape = (num_layers, num_pages, page_size) + self._row
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = None if kv_heads is None else torch.zeros(
-            shape, dtype=dtype, device=self.device)
+        self._planes = tuple(
+            torch.zeros((num_layers, num_pages, page_size) + row,
+                        dtype=dtype, device=self.device)
+            for row in self.plane_rows(kv_heads, head_dim))
+        self.k, self.v = kv_pair(self._planes)
         self.refcount = np.zeros((num_pages,), np.int64)
         self.free_pages: List[int] = list(range(num_pages - 1, -1, -1))
         self.sequences: Dict[int, SequenceEntry] = {}
@@ -82,6 +92,16 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         self.pages_shared = 0
         self.tokens_reused = 0
         self._on_sync = on_sync
+
+    @staticmethod
+    def plane_rows(kv_heads: Optional[int], head_dim: int
+                   ) -> Tuple[Tuple[int, ...], ...]:
+        """A token's row in each plane of a pool of this layout: K's and
+        V's ``(kv_heads, head_dim)``, or, where ``kv_heads`` is None, one
+        plane's ``(head_dim,)``."""
+        if kv_heads is None:
+            return ((head_dim,),)
+        return ((kv_heads, head_dim),) * 2
 
     def _synced(self, n: int = 1) -> None:
         if self._on_sync is not None:
@@ -120,24 +140,23 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
                                device=self.device)
 
     def _page_blocks(self, a) -> torch.Tensor:
-        """(L, S, Hkv, Dh) -> (L, n_pages, page, Hkv, Dh), zero-padded to
-        whole pages, in pool dtype on device (a latent: (L, S, Dh) ->
-        (L, n_pages, page, Dh))."""
+        """(L, S, *row) -> (L, n_pages, page, *row), zero-padded to whole
+        pages, in pool dtype on device."""
         a = self._on_device(a)
-        S = a.shape[1]
+        S, row = a.shape[1], a.shape[2:]
         ps = self.page_size
         n = -(-S // ps)
         pad = n * ps - S
         if pad:
-            a = F.pad(a, (0, 0) * len(self._row) + (0, pad))
-        return a.reshape(self.num_layers, n, ps, *self._row)
+            a = F.pad(a, (0, 0) * len(row) + (0, pad))
+        return a.reshape(self.num_layers, n, ps, *row)
 
-    def _write_pages(self, pages: List[int], k, v) -> None:
-        """Write whole-page blocks into freshly allocated pages."""
+    def _write_pages(self, pages: List[int], rows) -> None:
+        """Write whole-page blocks, one a plane, into freshly allocated
+        pages."""
         idx = self._index(pages)
-        self.k[:, idx] = self._page_blocks(k)
-        if self.v is not None:
-            self.v[:, idx] = self._page_blocks(v)
+        for plane, a in zip(self._planes, rows):
+            plane[:, idx] = self._page_blocks(a)
 
     def _cow_last_page(self, e: SequenceEntry) -> int:
         """Make the trailing page of ``e`` private (device page copy when
@@ -145,9 +164,8 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         p = e.page_ids[-1]
         if self.refcount[p] > 1:                 # copy-on-write partial page
             newp = self._alloc_page()
-            self.k[:, newp] = self.k[:, p]
-            if self.v is not None:
-                self.v[:, newp] = self.v[:, p]
+            for plane in self._planes:
+                plane[:, newp] = plane[:, p]
             self._unref_page(p)
             e.page_ids[-1] = newp
             p = newp
@@ -158,7 +176,7 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
                      shared_from: Optional[int] = None,
                      shared_len: int = 0) -> int:
         """Store a prefilled sequence's KV.  k/v: (L, S, Hkv, Dh) device
-        tensors (or numpy at the import boundary) or None; a latent
+        tensors (or numpy at the import boundary) or None; a one-plane
         pool's k is (L, S, Dh) and its v None.
 
         If ``shared_from`` names an existing sequence, its first
@@ -194,7 +212,7 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
                                  "prefix; extend_sequence() handles the "
                                  "copy-on-write case")
             pages = [self._alloc_page() for _ in range(-(-S // ps))]
-            self._write_pages(pages, k, v)
+            self._write_pages(pages, (k, v))
             page_ids.extend(pages)
             length += S
         self.sequences[seq_id] = SequenceEntry(seq_id, page_ids, length)
@@ -205,33 +223,29 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         fill the trailing partial page first (copy-on-write if aliased),
         then whole pages."""
         e = self.sequences[seq_id]
-        latent = self.v is None
-        k = self._on_device(k)
-        v = None if latent else self._on_device(v)
-        S = k.shape[1]
+        rows = [self._on_device(a) for _, a in zip(self._planes, (k, v))]
+        S = rows[0].shape[1]
         ps = self.page_size
         off = e.length % ps
         if off and S:
             p = self._cow_last_page(e)
             n = min(ps - off, S)
-            self.k[:, p, off:off + n] = k[:, :n]
-            if not latent:
-                self.v[:, p, off:off + n] = v[:, :n]
+            for plane, a in zip(self._planes, rows):
+                plane[:, p, off:off + n] = a[:, :n]
             e.length += n
-            k, v = k[:, n:], None if latent else v[:, n:]
+            rows = [a[:, n:] for a in rows]
             S -= n
         if S:
             pages = [self._alloc_page() for _ in range(-(-S // ps))]
-            self._write_pages(pages, k, v)
+            self._write_pages(pages, rows)
             e.page_ids.extend(pages)
             e.length += S
 
     def append_token(self, seq_id: int, k_t, v_t) -> None:
         """k_t/v_t: (L, Hkv, Dh), one decode step's KV."""
         p, slot = self.prepare_append(seq_id)
-        self.k[:, p, slot] = self._on_device(k_t)
-        if self.v is not None:
-            self.v[:, p, slot] = self._on_device(v_t)
+        for plane, a in zip(self._planes, (k_t, v_t)):
+            plane[:, p, slot] = self._on_device(a)
         self.commit_append(seq_id)
 
     def append_tokens(self, seq_ids: List[int], k_t, v_t) -> None:
@@ -242,9 +256,8 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         the decode kernel)."""
         pages, slots = self.prepare_appends(seq_ids)
         pi, si = self._index(pages), self._index(slots)
-        self.k[:, pi, si] = self._on_device(k_t)
-        if self.v is not None:
-            self.v[:, pi, si] = self._on_device(v_t)
+        for plane, a in zip(self._planes, (k_t, v_t)):
+            plane[:, pi, si] = self._on_device(a)
         self.commit_appends(seq_ids)
 
     def prepare_append(self, seq_id: int) -> Tuple[int, int]:
@@ -284,16 +297,14 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
     # --------------------------------------------------------------- read
     def gather(self, seq_id: int
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Contiguous (L, T, Hkv, Dh) device copies of a sequence (a
-        latent pool: (L, T, Dh) and None)."""
+        """Contiguous (L, T, Hkv, Dh) device copies of a sequence, as a
+        (K, V) pair (a one-plane pool: (L, T, Dh) and None)."""
         e = self.sequences[seq_id]
         idx = self._index(e.page_ids)
-        L = self.num_layers
-        k = self.k[:, idx].reshape(L, -1, *self._row)
-        if self.v is None:
-            return k[:, :e.length], None
-        v = self.v[:, idx].reshape(L, -1, *self._row)
-        return k[:, :e.length], v[:, :e.length]
+        return kv_pair([
+            plane[:, idx].reshape(self.num_layers, -1,
+                                  *plane.shape[3:])[:, :e.length]
+            for plane in self._planes])
 
     def page_table(self, seq_id: int) -> List[int]:
         return list(self.sequences[seq_id].page_ids)
@@ -303,9 +314,10 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
                         length: Optional[int] = None
                         ) -> Tuple[np.ndarray, np.ndarray]:
         """Contiguous (L, T, Hkv, Dh) f32 host copies of a sequence's first
-        ``length`` tokens (default: all): the cross-worker wire format."""
-        if self.v is None:
-            raise NotImplementedError("a latent pool's sequences do not "
+        ``length`` tokens (default: all): the cross-worker wire format,
+        which a one-plane pool does not have."""
+        if len(self._planes) != 2:
+            raise NotImplementedError("a one-plane pool's sequences do not "
                                       "migrate")
         e = self.sequences[seq_id]
         n = e.length if length is None else min(length, e.length)
@@ -323,8 +335,8 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         """Adopt a migrated contiguous KV block as a new sequence (the
         inverse of :meth:`export_sequence`); raises MemoryError if the pool
         cannot hold it."""
-        if self.v is None:
-            raise NotImplementedError("a latent pool's sequences do not "
+        if len(self._planes) != 2:
+            raise NotImplementedError("a one-plane pool's sequences do not "
                                       "migrate")
         if k.shape != v.shape or k.shape[0] != self.num_layers \
                 or tuple(k.shape[2:]) != (self.kv_heads, self.head_dim):
@@ -345,4 +357,4 @@ class PagedKVCache:  # requires: InferenceEngine._cv | engine-loop
         unless ``dtype_bytes`` is given."""
         if dtype_bytes is None:
             dtype_bytes = self.dtype.itemsize
-        return (1 if self.v is None else 2) * self.k.numel() * dtype_bytes
+        return sum(plane.numel() for plane in self._planes) * dtype_bytes

@@ -2,15 +2,17 @@
 ``cfg.family``.
 
 * a config with latent attention (``cfg.mla``, DeepSeek-V2) ->
-  ``MLATransformerLM`` (``mla.py``), the paged hooks below over a latent
-  pool (``paged_kv_layout()`` -> (layers, None, latent width)).
+  ``MLATransformerLM`` (``mla.py``), the paged hooks below over a
+  one-plane pool (``paged_kv_layout()`` -> (layers, None, latent
+  width)), whose V pages and rows are None.
 * ``dense``, ``moe`` and ``vlm`` -> ``TransformerLM``.  It implements the
   paged-KV hooks the continuous-batching engine drives:
     paged_kv_layout() -> (layers, kv_heads, head_dim)
     prefill(tokens, prefix_embeds=...) -> (logits, cache)  # VLM requests
     prefill_with_cache(tokens, cache, valid_len=...) -> (logits, cache)
     paged_decode_step(token, k_pages, v_pages, page_table, lengths)
-        -> (logits, k_pages, v_pages)          # pools updated in place
+        -> (logits, k_pages, v_pages)   # pools updated in place, in the
+                                        # kernel the model picks
     cache_kv_rows_dev / cache_kv_rows / paged_cache_view / cache_capacity
   and the dense-view hooks of the engine's ``paged_decode=False`` arm:
     decode_step(token, cache) -> (logits, cache)

@@ -360,14 +360,11 @@ class MLATransformerLM(TransformerLM):
                                  v_pages: Optional[torch.Tensor],
                                  page_table: torch.Tensor,
                                  lengths: torch.Tensor,
-                                 impl: Optional[str] = None,
-                                 variant: Optional[str] = None,
-                                 pages_per_block: Optional[int] = None
+                                 impl: Optional[str] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor, None]:
         """One autoregressive step over the latent pool ``k_pages`` (L, P,
-        page, kv_lora + dr); ``v_pages`` is None (a latent pool has no V),
-        ``variant`` and ``pages_per_block`` are the GQA kernel's and
-        ignored.  Each layer lands the token's latent at ``(page_table[b,
+        page, kv_lora + dr); ``v_pages`` is None (a latent pool has no
+        V).  Each layer lands the token's latent at ``(page_table[b,
         len // page], len % page)`` IN PLACE (no host sync), then attends
         in the absorbed form: under ``impl="cuda"`` in the latent kernel
         (``ld_ops``), under ``"torch"`` in its plain version.  Padded rows
@@ -408,10 +405,6 @@ class MLATransformerLM(TransformerLM):
         return x[:, -1] @ self._head(), k_pages, None
 
     # ------------------------------------------------- paged-KV engine hooks
-    def paged_kernel(self, page_size: int) -> dict:
-        """The latent kernel has one fixed launch configuration."""
-        return {"variant": "latent", "pages_per_block": None}
-
     @property
     def prefill_rows_independent(self) -> bool:
         """True: the routing is dropless, so a row's experts and its

@@ -32,7 +32,7 @@ whole-pool copy an immutable update would cost (about 1.9 GB at full
 width).
 
 On the card ``paged_decode_step`` replays CUDA graphs: the step's
-launches, captured once per batch, table width, kernel variant and pool
+launches, captured once per batch, table width and pool
 (``_StepGraph``), go to the card in one graph launch instead of one
 Python call each, which bounded a step's time at full width.  The first
 call of such a key runs eagerly (``_paged_decode_step_eager``), the
@@ -451,34 +451,36 @@ class TransformerLM(nn.Module):
     def paged_decode_step(self, token: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: Optional[torch.Tensor],
                           page_table: torch.Tensor, lengths: torch.Tensor,
-                          impl: Optional[str] = None,
-                          variant: Optional[str] = None,
-                          pages_per_block: Optional[int] = None
+                          impl: Optional[str] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      Optional[torch.Tensor]]:
         """One autoregressive step over the page pool: the eager step
         (``_paged_decode_step_eager``, which states the arguments), or on
         the card its CUDA graph.
 
-        A graph is keyed by ``(B, n_pages, variant, pages_per_block)`` and
-        the pools' addresses.  A key's first call runs eagerly, its
-        second (``_GRAPH_CALL``) captures it, and each later call copies
-        ``token``, ``page_table`` and ``lengths`` into the graph's own
-        buffers and replays it, with the host counts a step advances
-        (the kernels' launches) moved as the captured step moved them.
+        A graph is keyed by ``(B, n_pages)`` and the pools' addresses.  A
+        key's first call runs eagerly, its second (``_GRAPH_CALL``)
+        captures it, and each later call copies ``token``, ``page_table``
+        and ``lengths`` into the graph's own buffers and replays it, with
+        the host counts a step advances (the kernels' launches) moved as
+        the captured step moved them.
         The graphs and the calls of the ``_GRAPH_KEYS`` keys used last
         are kept, each least recent first out.  Graphs are used only
         where ``_graphs_apply`` holds, and a key whose capture finds no
         memory stays eager (``_capture_step``).  A replayed step returns
         the logits buffer that every graph of its batch size writes:
         valid until the next decode step.  The pools returned are the
-        tensors passed in."""
+        tensors passed in.
+
+        The paged kernel's table is read by the eager step only, so a
+        key's graph replays the variant its capture launched: a step under
+        another table (``pd_ops._DEFAULT_TABLE``) wants a fresh model.  A
+        malformed table raises ``ValueError`` from the first step."""
         if not self._graphs_apply(token, impl):
             return self._paged_decode_step_eager(
-                token, k_pages, v_pages, page_table, lengths, impl=impl,
-                variant=variant, pages_per_block=pages_per_block)
-        key = (token.shape[0], page_table.shape[1], variant,
-               pages_per_block, k_pages.data_ptr(), tuple(k_pages.shape),
+                token, k_pages, v_pages, page_table, lengths, impl=impl)
+        key = (token.shape[0], page_table.shape[1], k_pages.data_ptr(),
+               tuple(k_pages.shape),
                None if v_pages is None else v_pages.data_ptr())
         g = self._graphs.get(key)
         if g is None:
@@ -486,13 +488,10 @@ class TransformerLM(nn.Module):
             _keep(self._graph_calls, key, n, self._GRAPH_KEYS)
             if n == self._GRAPH_CALL:
                 g = self._capture_step(token, k_pages, v_pages, page_table,
-                                       lengths, impl, variant,
-                                       pages_per_block)
+                                       lengths, impl)
             if g is None:
                 return self._paged_decode_step_eager(
-                    token, k_pages, v_pages, page_table, lengths,
-                    impl=impl, variant=variant,
-                    pages_per_block=pages_per_block)
+                    token, k_pages, v_pages, page_table, lengths, impl=impl)
             del self._graph_calls[key]
             _keep(self._graphs, key, g, self._GRAPH_KEYS)
         else:
@@ -518,8 +517,7 @@ class TransformerLM(nn.Module):
                 and not torch.cuda.is_current_stream_capturing())
 
     def _capture_step(self, token, k_pages, v_pages, page_table, lengths,
-                      impl, variant, pages_per_block
-                      ) -> Optional[_StepGraph]:
+                      impl) -> Optional[_StepGraph]:
         """Capture the eager step over static copies of the inputs
         (``_record``), with its logits copied into the batch size's
         buffer, and note how far the host counts moved meanwhile.  The
@@ -543,7 +541,7 @@ class TransformerLM(nn.Module):
         def step():
             out = self._paged_decode_step_eager(
                 g.token, k_pages, v_pages, g.page_table, g.lengths,
-                impl=impl, variant=variant, pages_per_block=pages_per_block)
+                impl=impl)
             g.logits.copy_(out[0])
 
         before = self._host_counts()
@@ -628,9 +626,7 @@ class TransformerLM(nn.Module):
                                  v_pages: torch.Tensor,
                                  page_table: torch.Tensor,
                                  lengths: torch.Tensor,
-                                 impl: Optional[str] = None,
-                                 variant: Optional[str] = None,
-                                 pages_per_block: Optional[int] = None
+                                 impl: Optional[str] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor]:
         """One autoregressive step straight over the page pool.
@@ -640,17 +636,14 @@ class TransformerLM(nn.Module):
         order, zero-padded); lengths: (B,) int32 with -1 for padded rows.
         Each layer lands the new token's KV at ``(page_table[b, len //
         page], len % page)`` IN PLACE and attends over the row's pages.
-        Under ``impl="cuda"`` the kernel ``variant`` picks how: ``fused``
-        appends inside the attention kernel; ``single``/``blocked``
-        scatter first, then attend.  With no ``variant`` the paged
-        kernel's table picks it and its ``pages_per_block``
-        (``pd_ops.kernel_config`` at this pool's page size, KV heads,
-        Dh and grouping); an explicit ``variant`` runs at the caller's
-        ``pages_per_block`` (None: the wrapper's default).  The engine
-        resolves the table once and passes both.  Under ``impl="torch"`` the step
-        scatters and gathers densely.  The scatter makes no host sync
-        (``pd_ops.append_targets``), so the step runs on meta tensors
-        under every variant.  Padded rows write nothing and are fully
+        Under ``impl="cuda"`` the paged kernel's table
+        (``pd_ops.kernel_config`` at this pool's page size, KV heads, Dh
+        and grouping) names the variant and its ``pages_per_block``:
+        ``fused`` appends inside the attention kernel; ``single`` and
+        ``blocked`` scatter first, then attend.  Under ``impl="torch"``
+        the step scatters and gathers densely.  The scatter makes no host
+        sync (``pd_ops.append_targets``), so the step runs on meta
+        tensors under every variant.  Padded rows write nothing and are fully
         masked.  Returns ``(logits (B, Vpad), k_pages, v_pages)``, the
         pools being the tensors passed in.
         """
@@ -667,10 +660,9 @@ class TransformerLM(nn.Module):
         posc = pos.clamp(min=0)
         x = L.embed_lookup(self.embed, token)[:, None, :]      # (B,1,D)
         if impl == "cuda":
-            ppb = pages_per_block
-            if variant is None:
-                kc = self.paged_kernel(ps)
-                variant, ppb = kc["variant"], kc["pages_per_block"]
+            kc = pd_ops.kernel_config(ps, cfg.num_kv_heads, self.head_dim,
+                                      cfg.num_heads // cfg.num_kv_heads)
+            variant, ppb = kc["variant"], kc["pages_per_block"]
         else:
             variant = None
         fused = variant == "fused"
@@ -708,15 +700,6 @@ class TransformerLM(nn.Module):
         return x[:, -1] @ self._head(), k_pages, v_pages
 
     # ------------------------------------------------- paged-KV engine hooks
-    def paged_kernel(self, page_size: int) -> dict:
-        """The paged kernel's ``{"variant", "pages_per_block"}`` for this
-        model's pools at ``page_size``: the per-shape table's entry at
-        its KV heads, Dh and head grouping (``pd_ops.kernel_config``)."""
-        cfg = self.cfg
-        return pd_ops.kernel_config(page_size, cfg.num_kv_heads,
-                                    self.head_dim,
-                                    cfg.num_heads // cfg.num_kv_heads)
-
     @property
     def prefill_rows_independent(self) -> bool:
         """Whether a row's ``prefill_with_cache`` result, in exact

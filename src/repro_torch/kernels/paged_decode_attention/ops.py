@@ -27,8 +27,10 @@ beside this module (``kernel_config``), which the sweep in ``tune.py``
 writes from the card's timings; a key the table lacks takes its
 ``"default"`` entry, and a table without one ``DEFAULT_VARIANT`` at
 ``DEFAULT_PAGES_PER_BLOCK``.  The table never touches the chunk plan.
-A caller forces a variant by passing it (``paged_decode_step(variant=)``,
-``InferenceEngine(kernel_variant=)``); nothing in the environment does.
+The model's eager decode step reads it at each call (a cached read); a
+replayed CUDA graph runs what its capture read.  Only another table in
+this one's place forces a variant: nothing in the environment or in an
+engine's or a step's arguments does.
 """
 from __future__ import annotations
 

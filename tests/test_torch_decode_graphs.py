@@ -5,7 +5,8 @@ runs the step's Python once, as a capture does, and its replay runs the
 step again with the host counts put back, as a graph's replay runs no
 Python.  The CPU kernels count no launch, so the wrappers the step calls
 are spied on to count as the card's do.  These tests hold the
-dispatcher's bookkeeping: a key's first call eager, its second captured,
+dispatcher's bookkeeping (the paged kernel's table forced to ``fused``,
+whose wrapper is spied on): a key's first call eager, its second captured,
 the later ones replayed; one graph a key, and no more than
 ``_GRAPH_KEYS`` keys kept; each replay advancing every host count by
 what its capture counted; the counters in ``EngineStats.as_dict()``; a
@@ -30,6 +31,8 @@ from repro_torch.kernels.latent_decode_attention import (  # noqa: E402
     ops as ld_ops)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     ops as pd_ops)
+
+from _torch_paged_helpers import paged_variant  # noqa: E402,F401
 
 PAGE = 4
 F32 = dict(dtype="float32", param_dtype="float32")
@@ -91,6 +94,12 @@ class FakeCapture:
         return replay
 
 
+@pytest.fixture(autouse=True)
+def _fused(paged_variant):
+    """The GQA step's variant, which the launch spies count."""
+    paged_variant("fused")
+
+
 @pytest.fixture
 def launches(monkeypatch):
     """Count the CPU kernels' calls as launches, as the card's wrappers
@@ -120,7 +129,7 @@ def _graphed(model, monkeypatch):
 def _step(model, pools, inputs, eager=False):
     tok, pt, lens = inputs
     fn = model._paged_decode_step_eager if eager else model.paged_decode_step
-    return fn(tok, pools[0], pools[1], pt, lens, variant="fused")
+    return fn(tok, pools[0], pools[1], pt, lens)
 
 
 def _host(model):
@@ -146,8 +155,8 @@ def test_a_keys_first_call_is_eager_its_second_captures_the_rest_replay(
 
 @pytest.mark.parametrize("arch", sorted(CONFIGS))
 def test_one_graph_a_key(arch, monkeypatch, launches):
-    """Batch, table width, variant and pool each make a key of their own;
-    the graphs of one batch size share one logits buffer."""
+    """Batch, table width and pool each make a key of their own; the
+    graphs of one batch size share one logits buffer."""
     model = _model(arch)
     fake = _graphed(model, monkeypatch)
     pools = _pools(model, 48)
@@ -161,10 +170,8 @@ def test_one_graph_a_key(arch, monkeypatch, launches):
     assert model.decode_graph_replays == len(keys)
     assert out[0] is out[1] is out[3] and out[2] is not out[0]
     assert sorted(model._graph_logits) == [2, 4]
-    tok, pt, lens = _inputs(4, 6, 0)
-    _step(model, pools, (tok, pt, lens), eager=True)
-    model.paged_decode_step(tok, pools[0], pools[1], pt, lens,
-                            variant="single")
+    _step(model, pools, _inputs(4, 6, 0), eager=True)
+    _step(model, pools, _inputs(4, 7, 0))
     assert len(model._graphs) == len(keys)      # a new key: eager first
     model.float()                               # moved weights: none kept
     assert not model._graphs and not model._graph_logits

@@ -27,6 +27,7 @@ The card's case is marked ``cuda`` and skips here; this file imports no
 JAX.
 """
 import dataclasses
+import math
 
 import pytest
 
@@ -37,7 +38,7 @@ from repro_torch.configs.base import MoEConfig, RoutingConfig  # noqa: E402
 from repro_torch.configs.deepseek_v2 import (  # noqa: E402
     CONFIG, smoke_config)
 from repro_torch.engine.engine import InferenceEngine  # noqa: E402
-from repro_torch.engine.kvcache import PagedKVCache  # noqa: E402
+from repro_torch.engine.kvcache import PagedKVCache, kv_pair  # noqa: E402
 from repro_torch.engine.models import deepseek_v2_ref as R  # noqa: E402
 from repro_torch.engine.models import mla as MLA  # noqa: E402
 from repro_torch.engine.models import moe_share as MS  # noqa: E402
@@ -274,33 +275,55 @@ def test_share_counts_held_slots_and_leaves_padding_out():
     torch.testing.assert_close(shared_only, want)
 
 
-def test_latent_pool_aliasing_and_copy_on_write():
-    """One (L, P, page, D) tensor and no V; a sequence aliases a donor's
-    pages up to a partial page, its first append copies that page, and
-    the donor's latents stay as they were; the bytes are the latent's."""
+@pytest.mark.parametrize("heads", [None, 2], ids=["one_plane",
+                                                  "two_planes"])
+def test_latent_pool_aliasing_and_copy_on_write(heads):
+    """One code path over the planes a pool holds: one (L, P, page, D)
+    tensor and no V (the latent pool), or K and V of (L, P, page, H, D).
+    A sequence aliases a donor's pages up to a partial page, its first
+    append copies that page in every plane, and the donor's rows stay as
+    they were; the bytes are the planes'.  Only a (K, V) pool's sequences
+    migrate."""
     L, D, ps = 3, 24, 4
-    kv = PagedKVCache(L, 16, ps, None, D, device="cpu")
-    assert kv.v is None and kv.k.shape == (L, 16, ps, D)
-    assert kv.hbm_bytes() == L * 16 * ps * D * 4
+    row = (D,) if heads is None else (heads, D)
+    planes = 1 if heads is None else 2
+    kv = PagedKVCache(L, 16, ps, heads, D, device="cpu")
+    assert kv.k.shape == (L, 16, ps) + row
+    assert (kv.v is None) == (planes == 1)
+    assert kv.hbm_bytes() == planes * L * 16 * ps * math.prod(row) * 4
     g = torch.Generator().manual_seed(0)
-    a = torch.randn(L, 10, D, generator=g)
-    donor = kv.add_sequence(a, None)
-    got, none = kv.gather(donor)
-    assert none is None and torch.equal(got, a)
+
+    def rows(n):
+        return kv_pair([torch.randn((L, n) + row, generator=g)
+                        for _ in range(planes)])
+
+    def same(got, want):
+        return all((x is None and y is None) or torch.equal(x, y)
+                   for x, y in zip(got, want))
+
+    a = rows(10)
+    donor = kv.add_sequence(*a)
+    assert same(kv.gather(donor), a)
     seq = kv.add_sequence(shared_from=donor, shared_len=10)
     assert kv.sequences[seq].page_ids == kv.sequences[donor].page_ids
-    b = torch.randn(L, 5, D, generator=g)
-    kv.extend_sequence(seq, b, None)
+    b = rows(5)
+    kv.extend_sequence(seq, *b)
     assert kv.sequences[seq].page_ids[2] != kv.sequences[donor].page_ids[2]
-    assert torch.equal(kv.gather(donor)[0], a)
-    assert torch.equal(kv.gather(seq)[0], torch.cat([a, b], dim=1))
+    assert same(kv.gather(donor), a)
+    assert same(kv.gather(seq), kv_pair(
+        [torch.cat([x, y], dim=1) for x, y in zip(a[:planes], b)]))
     p, slot = kv.prepare_append(donor)
     assert (p, slot) == (kv.sequences[donor].page_ids[2], 2)
     kv.free_sequence(seq)
     kv.free_sequence(donor)
     assert kv.pages_in_use == 0
-    with pytest.raises(NotImplementedError):
-        kv.export_sequence(kv.add_sequence(a, None))
+    seq = kv.add_sequence(*a)
+    if planes == 1:
+        with pytest.raises(NotImplementedError):
+            kv.export_sequence(seq)
+    else:
+        assert same([torch.from_numpy(x) for x in kv.export_sequence(seq)],
+                    a)
 
 
 def test_the_engine_counts_the_expert_layer_and_nothing_new_elsewhere():

@@ -27,6 +27,8 @@ from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.engine.engine import InferenceEngine  # noqa: E402
 from repro_torch.engine.sampling import sample  # noqa: E402
 
+from _torch_paged_helpers import paged_variant  # noqa: E402,F401
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -110,17 +112,19 @@ def test_greedy_tokens_and_sharing_counters_equal_jax(weights, jax_run):
         eng.shutdown()
 
 
-def test_kernel_variants_give_identical_tokens(weights, jax_run):
-    outs = {}
-    for variant in ("single", "blocked", "fused"):
-        eng = _torch_engine(weights, kernel_variant=variant)
-        try:
-            outs[variant] = (eng.generate(PROMPTS, max_new_tokens=5),
-                             eng.generate(PROMPTS, max_new_tokens=5))
-        finally:
-            eng.shutdown()
-    assert outs["single"] == outs["blocked"] == outs["fused"]
-    assert outs["fused"][0] == jax_run["fresh"]
+@pytest.mark.parametrize("variant", ["single", "blocked", "fused"])
+def test_kernel_variants_give_identical_tokens(weights, jax_run,
+                                               paged_variant, variant):
+    """Each variant the paged kernel's table may name gives the JAX
+    engine's tokens, fresh and warm."""
+    paged_variant(variant)
+    eng = _torch_engine(weights)
+    try:
+        out = (eng.generate(PROMPTS, max_new_tokens=5),
+               eng.generate(PROMPTS, max_new_tokens=5))
+    finally:
+        eng.shutdown()
+    assert out == (jax_run["fresh"], jax_run["warm"])
 
 
 def test_widest_decode_table_follows_the_longest_row(weights):

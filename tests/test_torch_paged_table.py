@@ -7,7 +7,8 @@ variable steering the port; the checked-in table (the sweep's output from the
 card) against the configs' paged keys; ``paged_decode_step`` following the
 table on the smoke qwen3 with weights bridged from the JAX init (on the
 CPU the wrappers run their plain versions, so a variant changes no bit),
-and the engine resolving it once;
+and every engine step launching the table's pick (a malformed table
+failing the first decode step's requests);
 the attend-only arms' append, which makes no host sync, against
 ``scatter_append_ref`` on the CPU and counted on meta; and the sweep,
 which refuses to run or persist off the card.
@@ -36,6 +37,9 @@ from repro_torch.kernels.paged_decode_attention.ref import (  # noqa: E402
     scatter_append_ref)
 from repro_torch.launch.op_cost import analyze_ops  # noqa: E402
 
+from _torch_paged_helpers import (  # noqa: E402,F401
+    paged_variant, use_table, write_table)
+
 
 @pytest.fixture(autouse=True)
 def _fresh_table():
@@ -46,19 +50,6 @@ def _fresh_table():
     yield
     torch.set_num_threads(n)
     ops._load_table.cache_clear()
-
-
-def _use(path, monkeypatch):
-    """Put the table at ``path`` in the checked-in table's place."""
-    monkeypatch.setattr(ops, "_DEFAULT_TABLE", str(path))
-    ops._load_table.cache_clear()
-
-
-def _write(tmp_path, table, monkeypatch):
-    p = tmp_path / "table.json"
-    p.write_text(json.dumps(table))
-    _use(p, monkeypatch)
-    return p
 
 
 # ------------------------------------------------------------- resolution
@@ -88,7 +79,7 @@ def test_kernel_config_table_path_override(tmp_path, monkeypatch):
     """Another table in the checked-in one's place is read (JAX's
     REPRO_KERNEL_AUTOTUNE case); a JAX table's grid_layout is
     ignored."""
-    _write(tmp_path, {"configs": {
+    write_table(tmp_path, {"configs": {
         "default": {"variant": "blocked", "pages_per_block": 2,
                     "grid_layout": "hb"},
         "ps32-hkv4-dh64-g2": {"variant": "single", "pages_per_block": 1,
@@ -101,9 +92,9 @@ def test_kernel_config_table_path_override(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("prefix", ["REPRO_", "REPRO_TORCH_"])
 def test_kernel_config_environment_steers_nothing(monkeypatch, prefix):
-    """A variant is forced only by passing it (JAX's REPRO_PAGED_VARIANT
-    case is ``variant=``, below): neither package's environment names
-    move the port's table."""
+    """A variant is forced only by another table in the checked-in one's
+    place (JAX's REPRO_PAGED_VARIANT case is ``write_table``, below): neither
+    package's environment names move the port's table."""
     want = ops.kernel_config(999, 1, 1, 1)
     monkeypatch.setenv(prefix + "PAGED_VARIANT", "blocked")
     monkeypatch.setenv(prefix + "KERNEL_AUTOTUNE", "/nonexistent.json")
@@ -114,14 +105,14 @@ def test_kernel_config_environment_steers_nothing(monkeypatch, prefix):
 
 
 def test_kernel_config_unreadable_table_falls_back(tmp_path, monkeypatch):
-    _use(tmp_path / "missing.json", monkeypatch)
+    use_table(tmp_path / "missing.json", monkeypatch)
     assert ops.table() == {}
     assert ops.kernel_config(8, 8, 128, 2) == {
         "variant": ops.DEFAULT_VARIANT,
         "pages_per_block": ops.DEFAULT_PAGES_PER_BLOCK}
     bad = tmp_path / "bad.json"
     bad.write_text("{not json")
-    _use(bad, monkeypatch)
+    use_table(bad, monkeypatch)
     assert ops.kernel_config(8, 8, 128, 2)["variant"] == "fused"
 
 
@@ -133,7 +124,7 @@ def test_kernel_config_unreadable_table_falls_back(tmp_path, monkeypatch):
     ({"variant": "fused", "pages_per_block": True}, "default"),
     ({"variant": "paged"}, "ps8-hkv8-dh128-g2")])
 def test_bad_entries_raise(tmp_path, monkeypatch, entry, where):
-    _write(tmp_path, {"configs": {where: entry}}, monkeypatch)
+    write_table(tmp_path, {"configs": {where: entry}}, monkeypatch)
     with pytest.raises(ValueError):
         ops.kernel_config(8, 8, 128, 2)
 
@@ -303,9 +294,9 @@ def _recorders(monkeypatch):
                                    ("fused", 2)])
 def test_decode_step_follows_the_table(bridged, tmp_path, monkeypatch,
                                        entry):
-    """With no variant, ``impl="cuda"`` resolves the table at the smoke
-    model's key (once a step when called directly) and hands its variant and pages a block to
-    the wrapper every layer; the logits equal the JAX step's."""
+    """``impl="cuda"`` resolves the table at the smoke model's key once a
+    step and hands its variant and pages a block to the wrapper every
+    layer; the logits equal the JAX step's."""
     jm, jp, tm = bridged
     cfg = tm.cfg
     key = ops.shape_key(8, cfg.num_kv_heads, tm.head_dim,
@@ -315,7 +306,7 @@ def test_decode_step_follows_the_table(bridged, tmp_path, monkeypatch,
                                  cfg.num_heads // cfg.num_kv_heads)
         want = (want["variant"], want["pages_per_block"])
     else:
-        _write(tmp_path, {"configs": {
+        write_table(tmp_path, {"configs": {
             "default": {"variant": "fused", "pages_per_block": 8},
             key: {"variant": entry[0], "pages_per_block": entry[1]}}},
             monkeypatch)
@@ -341,32 +332,19 @@ def test_decode_step_follows_the_table(bridged, tmp_path, monkeypatch,
                                atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("ppb", [None, 3])
-def test_explicit_variant_wins_over_the_table(bridged, tmp_path,
-                                              monkeypatch, ppb):
-    """An explicit variant runs at the caller's pages a block (None: the
-    wrapper's default), and the table is not read."""
-    jm, jp, tm = bridged
-    _write(tmp_path, {"configs": {"default": {"variant": "single",
-                                              "pages_per_block": 1}}},
-           monkeypatch)
-    monkeypatch.setattr(ops, "kernel_config", None)
-    seen = _recorders(monkeypatch)
-    _torch_step(tm, _step_inputs(tm), impl="cuda", variant="fused",
-                pages_per_block=ppb)
-    assert seen == [("fused", ppb)] * tm.cfg.num_layers
-
-
 @pytest.mark.parametrize("variant", ["single", "blocked", "fused"])
-def test_forced_variants_give_the_fused_steps_bits(bridged, monkeypatch,
-                                                   variant):
-    """Under every forced variant the step's logits and pools equal the
-    fused step's bitwise, and the pages it did not write are untouched."""
+def test_forced_variants_give_the_fused_steps_bits(bridged, paged_variant,
+                                                   monkeypatch, variant):
+    """Under every variant a table forces the step's logits and pools
+    equal the fused step's bitwise, and the pages it did not write are
+    untouched."""
     _, _, tm = bridged
     inputs = _step_inputs(tm, seed=1)
-    ref = _torch_step(tm, inputs, impl="cuda", variant="fused")
+    paged_variant("fused")
+    ref = _torch_step(tm, inputs, impl="cuda")
+    paged_variant(variant)
     seen = _recorders(monkeypatch)
-    got = _torch_step(tm, inputs, impl="cuda", variant=variant)
+    got = _torch_step(tm, inputs, impl="cuda")
     assert {v for v, _ in seen} == {variant}
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
@@ -379,11 +357,12 @@ def test_forced_variants_give_the_fused_steps_bits(bridged, monkeypatch,
 
 
 @pytest.mark.parametrize("variant", ["single", "blocked", "fused"])
-def test_decode_step_counts_on_meta_under_every_variant(variant):
+def test_decode_step_counts_on_meta_under_every_variant(paged_variant,
+                                                        variant):
     """The step as the dry run and ``[roofline.card]`` trace it: meta
-    tensors, ``impl="cuda"``, each variant passed to the step (and the
-    table's, with none); the attend-only arms' append adds bytes and no
-    FLOPs."""
+    tensors, ``impl="cuda"``, each variant forced by a table (and the
+    checked-in table's pick); the attend-only arms' append adds bytes and
+    no FLOPs."""
     cfg = get_smoke("qwen3-1.7b").replace(attention_impl="cuda")
     model = build_model(cfg, device="meta")
     layers, hkv, dh = model.paged_kv_layout()
@@ -392,56 +371,87 @@ def test_decode_step_counts_on_meta_under_every_variant(variant):
     def meta(*s, dtype=torch.int32):
         return torch.empty(*s, dtype=dtype, device="meta")
 
-    def count(v):
+    def count(v=None):
+        if v is not None:
+            paged_variant(v)
         pools = [meta(layers, B * NP, ps, hkv, dh, dtype=torch.float32)
                  for _ in range(2)]
-        return analyze_ops(
-            lambda *a: model.paged_decode_step(*a, variant=v), meta(B),
-            *pools, meta(B, NP), meta(B))
+        return analyze_ops(model.paged_decode_step, meta(B), *pools,
+                           meta(B, NP), meta(B))
 
+    checked_in = count()
+    pick = ops.kernel_config(ps, hkv, dh, cfg.num_heads // hkv)["variant"]
     r, f = count(variant), count("fused")
     assert r["flops"] > 0 and r["bytes"] > 0
     if variant == "fused":
         assert r == f
     else:
         assert r["flops"] == f["flops"] and r["bytes"] > f["bytes"]
-    if variant == model.paged_kernel(ps)["variant"]:
-        assert count(None) == r
+    if variant == pick:
+        assert checked_in == r
 
 
-@pytest.mark.parametrize("pinned", [None, "blocked"])
-def test_engine_resolves_the_table_once(bridged, tmp_path, monkeypatch,
-                                        pinned):
-    """The engine reads the table once, when it is built, and every
-    decode step launches what it read: the table's variant and pages a
-    block, or its ``kernel_variant`` at the table's pages a block; its
-    greedy tokens equal a ``fused`` engine's."""
+@pytest.mark.parametrize("entry", [("single", 3), ("blocked", 2)])
+def test_every_engine_step_launches_the_tables_pick(bridged, tmp_path,
+                                                    monkeypatch, entry):
+    """An engine takes no variant: each decode step reads the table at
+    the model's key once and launches its variant and pages a block on
+    every layer; the greedy tokens equal those of an engine whose table
+    names ``fused``."""
     _, _, tm = bridged
     cfg = tm.cfg
     key = ops.shape_key(8, cfg.num_kv_heads, tm.head_dim,
                         cfg.num_heads // cfg.num_kv_heads)
-    _write(tmp_path, {"configs": {key: {"variant": "single",
-                                        "pages_per_block": 3}}},
-           monkeypatch)
     prompts = [[5, 6, 7, 8, 9], [11, 12, 13]]
-    ref = InferenceEngine(cfg, seed=0, device="cpu", kernel_variant="fused")
-    ref.load(tm.state_dict())
-    try:
-        want = ref.generate(prompts, max_new_tokens=3)
-    finally:
-        ref.shutdown()
+
+    def serve(variant, pages_per_block):
+        write_table(tmp_path, {"configs": {key: {
+            "variant": variant, "pages_per_block": pages_per_block}}},
+            monkeypatch)
+        eng = InferenceEngine(cfg, seed=0, device="cpu")
+        eng.load(tm.state_dict())
+        try:
+            return eng.generate(prompts, max_new_tokens=3)
+        finally:
+            eng.shutdown()
+
+    want = serve("fused", 2)
     calls = []
     real = ops.kernel_config
     monkeypatch.setattr(ops, "kernel_config",
                         lambda *a: calls.append(a) or real(*a))
-    eng = InferenceEngine(cfg, seed=0, device="cpu", kernel_variant=pinned)
-    eng.load(tm.state_dict())
-    assert len(calls) == 1
     seen = _recorders(monkeypatch)
+    got = serve(*entry)
+    assert calls and seen
+    assert set(seen) == {entry}
+    assert len(seen) == len(calls) * cfg.num_layers
+    assert got == want
+
+
+def test_a_malformed_table_fails_the_first_decode_steps_requests(
+        bridged, tmp_path, monkeypatch):
+    """An engine reads no table when built: a malformed entry at the
+    model's key raises its ValueError from the first decode step to every
+    request in it, returns their pages, and the engine serves on once
+    the table is mended."""
+    _, _, tm = bridged
+    cfg = tm.cfg
+    key = ops.shape_key(8, cfg.num_kv_heads, tm.head_dim,
+                        cfg.num_heads // cfg.num_kv_heads)
+    prompts = [[5, 6, 7, 8, 9], [11, 12, 13]]
+    write_table(tmp_path, {"configs": {key: {
+        "variant": "double", "pages_per_block": 2}}}, monkeypatch)
+    eng = InferenceEngine(cfg, seed=0, device="cpu")
+    eng.load(tm.state_dict())
     try:
-        got = eng.generate(prompts, max_new_tokens=3)
+        handles = [eng.submit(p, max_new_tokens=3) for p in prompts]
+        for h in handles:
+            with pytest.raises(ValueError, match="'double'"):
+                h.result()
+        assert not eng.kv.sequences and eng.kv.pages_in_use == 0
+        write_table(tmp_path, {"configs": {key: {
+            "variant": "fused", "pages_per_block": 2}}}, monkeypatch)
+        assert [len(t) for t in eng.generate(prompts, max_new_tokens=3)] \
+            == [3, 3]
     finally:
         eng.shutdown()
-    assert len(calls) == 1 and seen
-    assert set(seen) == {(pinned or "single", 3)}
-    assert got == want
